@@ -1,0 +1,83 @@
+"""Device curve contexts: bind towers + curve group laws + host conversions.
+
+`DevCurveCtx` is the device-side counterpart of host `PairingCurve`: G1 over
+DevFp, G2 over device Fp2, with host<->device point conversion (affine
+host tuples <-> projective limb pytrees).
+
+Counterpart of ripp_tpu/ops/points.py. Not ported yet: the fused-ladder
+factories, scalar_bits / scalars_to_bits / fr_limbs_to_bits, BW6DevCtx.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, Sequence
+
+import torch
+
+from .curve import DevSWCurve
+from .tower import DevTower, dev_tower, resolve_device
+
+
+class DevCurveCtx:
+    def __init__(self, tower: DevTower):
+        self.t = tower
+        self.host = tower.curve
+        self.device = tower.device
+        self.plain = tower.plain
+        c = self.host
+        fp, fp2 = tower.fp, tower.fp2
+
+        b3_g1 = fp.const(3 * c.g1.b % c.p)
+        self.g1 = DevSWCurve(fp, b3_g1, name=c.name + ".dev.g1")
+        b3_g2_host = c.tower.fp2.mul_int(c.g2.b, 3)
+        b3_g2 = (fp.const(b3_g2_host[0]), fp.const(b3_g2_host[1]))
+        self.g2 = DevSWCurve(fp2, b3_g2, name=c.name + ".dev.g2")
+
+    # --- host -> device -------------------------------------------------------
+    def _inf_mask(self, pts):
+        return torch.tensor([p is None for p in pts], dtype=torch.bool,
+                            device=self.device)
+
+    def g1_to_dev(self, pts: Sequence):
+        """List of host affine G1 (or None) -> projective device point batch."""
+        xs = [p[0] if p is not None else 0 for p in pts]
+        ys = [p[1] if p is not None else 1 for p in pts]
+        x = self.t.fp_to_dev(xs)
+        y = self.t.fp_to_dev(ys)
+        return self.g1.from_affine(x, y, self._inf_mask(pts))
+
+    def g2_to_dev(self, pts: Sequence):
+        f2 = self.host.tower.fp2
+        xs = [p[0] if p is not None else f2.zero() for p in pts]
+        ys = [p[1] if p is not None else f2.one() for p in pts]
+        x = self.t.fp2_to_dev(xs)
+        y = self.t.fp2_to_dev(ys)
+        return self.g2.from_affine(x, y, self._inf_mask(pts))
+
+    # --- device -> host -------------------------------------------------------
+    def g1_from_dev(self, P) -> List:
+        x, y, inf = self.g1.normalize(P)
+        xs = self.t.fp_from_dev(x)
+        ys = self.t.fp_from_dev(y)
+        infs = inf.reshape(-1).tolist()
+        return [None if i else (a, b) for a, b, i in zip(xs, ys, infs)]
+
+    def g2_from_dev(self, P) -> List:
+        x, y, inf = self.g2.normalize(P)
+        xs = self.t.fp2_from_dev(x)
+        ys = self.t.fp2_from_dev(y)
+        infs = inf.reshape(-1).tolist()
+        return [None if i else (a, b) for a, b, i in zip(xs, ys, infs)]
+
+
+@functools.lru_cache(maxsize=None)
+def _dev_ctx(curve_name: str, device: torch.device, plain: bool) -> DevCurveCtx:
+    return DevCurveCtx(dev_tower(curve_name, device, plain))
+
+
+def dev_ctx(curve_name: str, device=None, plain: bool = False) -> DevCurveCtx:
+    """Context for a curve on a device: torch.device("cuda") when `device`
+    is None (raises if there is no card); the tests pass device="cpu".
+    Cached per (curve, device, plain)."""
+    return _dev_ctx(curve_name, resolve_device(device), bool(plain))
