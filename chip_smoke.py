@@ -10,15 +10,21 @@ BLS12-381: `dev_ctx` -> `g1/g2_to_dev` -> `DevPairing.multi_pairing`
 Phases (a failure in any of them ends the run with a non-zero exit code
 and no result line):
   1. build: compile the CUDA library from ripp_tpu_torch/csrc with nvcc.
-  2. kernels: each kernel's wrapper against its plain PyTorch version on
-     the card, same inputs (numpy from a seed), exact equality of every
-     limb (integer arithmetic: the tolerance is zero); then timed.
+  2. kernels: multi_pairing is driven once at each size while the batch
+     every kernel wrapper is given is noted; then each kernel's wrapper is
+     held against its plain PyTorch version on the card at every one of
+     those batches, same inputs (numpy from a seed, or the main path's own
+     affine points), exact equality of every limb (integer arithmetic: the
+     tolerance is zero); then timed.
   3. main path, checked: multi_pairing at n = 8 with two identity pairs
      against the host model (Python bigints).
   4. main path, full size: multi_pairing at n = 256, 2048, 4096 with
      A_i = a_i*G1, B_i = b_i*G2; the result must equal
      e(G1, G2)^(sum a_i*b_i mod r). Launch counts are set to 0 before and
-     read after. Only then are the per-phase times taken and printed.
+     read after. Only then are the per-phase times taken and printed,
+     and the product tree and final exponentiation are timed a second way
+     (Fp12 products through the stacked tower instead of the program
+     executor) for comparison.
 
 Output: JSON objects, one a line; then the card's name and power limit as
 nvidia-smi prints them; then the {"kernels": [...]} line; the last line
@@ -132,45 +138,108 @@ def gpu_line():
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_fp_mul(ctx, plain_ctx, n_check, n_time):
+class ShapeCensus:
+    """While active, note the batch each kernel wrapper is given (the
+    wrappers themselves keep only a count of launches)."""
+
+    def __enter__(self):
+        from ripp_tpu_torch.ops import fp_cuda
+        from ripp_tpu_torch.ops.kexec import ProgramKernel
+        from ripp_tpu_torch.ops.pairing_fused import FusedMiller
+
+        self.fp_mul, self.kexec, self.miller = set(), set(), set()
+        self._saved = (fp_cuda.fp_mul, ProgramKernel._launch,
+                       FusedMiller._launch)
+        fp_mul, k_launch, m_launch = self._saved
+
+        def seen_fp_mul(spec, a, b):
+            shape = torch.broadcast_shapes(a.shape, b.shape)
+            self.fp_mul.add(int(np.prod(shape[:-1], dtype=np.int64)))
+            return fp_mul(spec, a, b)
+
+        def seen_kexec(kern, inputs, masks, bshape):
+            self.kexec.add((kern.sched.name,
+                            int(np.prod(bshape, dtype=np.int64))))
+            return k_launch(kern, inputs, masks, bshape)
+
+        def seen_miller(fm, xP, yP, qx, qy):
+            self.miller.add(int(np.prod(xP.shape[:-1], dtype=np.int64)))
+            return m_launch(fm, xP, yP, qx, qy)
+
+        fp_cuda.fp_mul = seen_fp_mul
+        ProgramKernel._launch = seen_kexec
+        FusedMiller._launch = seen_miller
+        return self
+
+    def __exit__(self, *exc):
+        from ripp_tpu_torch.ops import fp_cuda
+        from ripp_tpu_torch.ops.kexec import ProgramKernel
+        from ripp_tpu_torch.ops.pairing_fused import FusedMiller
+
+        fp_cuda.fp_mul, ProgramKernel._launch, FusedMiller._launch = \
+            self._saved
+        return False
+
+
+def main_path_shapes(ctx, dp, sizes, fixtures):
+    """Drive multi_pairing once at each size and return the batches the
+    three kernels were given."""
+    _, _, A, B = fixtures
+    P_all, Q_all = ctx.g1_to_dev(A), ctx.g2_to_dev(B)
+    with ShapeCensus() as seen:
+        for n in sizes:
+            dp.multi_pairing(
+                tuple(x[:n].clone() for x in P_all),
+                tuple(tuple(c[:n].clone() for c in q) for q in Q_all))
+        sync()
+    return seen
+
+
+def check_fp_mul(ctx, plain_ctx, batches, n_rate):
+    """fp_mul against mont_mul_limbs at every batch of `batches` (those the
+    main path gives it), with the edge operands; timed at the largest of
+    them; `n_rate` elements only for the elements-a-second figure."""
     from ripp_tpu_torch.ops import fp_cuda
     from ripp_tpu_torch.ops.fp import limbs_tensor
 
     spec = ctx.t.spec_fp
     fp, pfp = ctx.t.fp, plain_ctx.t.fp
     rng = np.random.default_rng(SEED)
-    a = random_limbs(rng, spec, n_check, ctx.device)
-    b = random_limbs(rng, spec, n_check, ctx.device)
     # edge operands 0, 1, p-1, R mod p, every pair of them
     edge = limbs_tensor(spec.to_mont_limbs([0, 1, spec.p - 1, spec.r]),
                         ctx.device)
     ea = edge.repeat_interleave(4, dim=0)
     eb = edge.repeat(4, 1)
-    a = torch.cat([ea, a])
-    b = torch.cat([eb, b])
-    got = fp.mul(a, b)
-    sync()
-    want = pfp.mul(a, b)
-    err = max_abs_err([got], [want])
-    if err:
-        raise AssertionError(f"fp_mul differs from its plain version: {err}")
-    # host check of the edge products
+    got = fp.mul(ea, eb)
+    if max_abs_err([got], [pfp.mul(ea, eb)]):
+        raise AssertionError("fp_mul edge products differ from plain")
     p = spec.p
     ev = [0, 1, p - 1, spec.r % p]
-    exp = [x * y % p for x in ev for y in ev]
-    if spec.from_mont_limbs(got[:16]) != exp:
+    if spec.from_mont_limbs(got) != [x * y % p for x in ev for y in ev]:
         raise AssertionError("fp_mul edge products differ from bigints")
 
-    # timing at the largest shape the main path gives it: the stacked Fp2
-    # products of G2's normalize, 3 * n elements (the Fp12 products go
-    # through the program executor); and at n_check for elements a second
+    checked = []
+    for n in sorted(batches):
+        a = random_limbs(rng, spec, n, ctx.device)
+        b = random_limbs(rng, spec, n, ctx.device)
+        # the edge operands ride in the first lanes where there is room
+        k = min(n, 16)
+        a[:k], b[:k] = ea[:k], eb[:k]
+        err = max_abs_err([fp.mul(a, b)], [pfp.mul(a, b)])
+        if err:
+            raise AssertionError(
+                f"fp_mul differs from its plain version at batch {n}: {err}")
+        checked.append(n)
+
+    n_time = max(batches)
     ta = random_limbs(rng, spec, n_time, ctx.device)
     tb = random_limbs(rng, spec, n_time, ctx.device)
     ms = time_ms(lambda: fp_cuda.fp_mul(spec, ta, tb), reps=20)
     plain_ms = time_ms(lambda: fp_cuda.mont_mul_limbs(spec, ta, tb),
                        reps=2, warm=1)
-    big = a[16:], b[16:]
-    ms_big = time_ms(lambda: fp_cuda.fp_mul(spec, *big), reps=20)
+    ra = random_limbs(rng, spec, n_rate, ctx.device)
+    rb = random_limbs(rng, spec, n_rate, ctx.device)
+    ms_rate = time_ms(lambda: fp_cuda.fp_mul(spec, ra, rb), reps=20)
     nw = spec.nl // 2
     bms, by = bound(3 * 4 * spec.nl * n_time,
                     n_time * 2 * (2 * nw * nw + nw))
@@ -178,30 +247,31 @@ def check_fp_mul(ctx, plain_ctx, n_check, n_time):
         "name": "fp_mul", "route": "cuda",
         "source": "ripp_tpu_torch/csrc/fp_mul.cu",
         "replaces": "ripp_tpu/ops/fp_pallas.py:211",
-        "equal": True, "max_abs_err": err, "checked_elements": int(a.shape[0]),
+        "equal": True, "max_abs_err": 0, "checked_batches": checked,
         "shape": [n_time, spec.nl], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "elements_per_s": n_check / (ms_big * 1e-3),
-        "elements_per_s_at": n_check,
+        "elements_per_s": n_rate / (ms_rate * 1e-3),
+        "elements_per_s_at": n_rate,
     }
 
 
-def check_kexec(ctx, plain_ctx, dp, n_step, n_f12):
+def check_kexec(ctx, plain_ctx, dp, shapes, n_step):
+    """The program executor against the plain executor: the Fp12 programs
+    at every (program, batch) of `shapes` (those the main path gives it)
+    and the two Miller step programs at `n_step` elements."""
     from ripp_tpu_torch.ops.kexec import ProgramKernel
 
     spec = ctx.t.spec_fp
     nw = spec.nl // 2
     rng = np.random.default_rng(SEED + 1)
     fm = dp.fused
-    mul_k, sqr_k = dp._build_f12_kernels()
+    by_name = {k.sched.name: k for k in dp._build_f12_kernels()}
+    cases = [(ProgramKernel(ctx.t.fp, fm.dbl_sched), n_step),
+             (ProgramKernel(ctx.t.fp, fm.add_sched), n_step)]
+    cases += [(by_name[name], n) for name, n in sorted(shapes)]
     programs = []
-    worst = 0
-    main = None
-    for sched, n, kern in (
-        (fm.dbl_sched, n_step, None), (fm.add_sched, n_step, None),
-        (mul_k.sched, n_f12, mul_k), (sqr_k.sched, n_f12, sqr_k),
-    ):
-        kern = kern or ProgramKernel(ctx.t.fp, sched)
+    for kern, n in cases:
+        sched = kern.sched
         plain = ProgramKernel(plain_ctx.t.fp, sched, plain=True)
         ins = [random_limbs(rng, spec, n, ctx.device)
                for _ in sched.inputs]
@@ -211,26 +281,26 @@ def check_kexec(ctx, plain_ctx, dp, n_step, n_f12):
         err = max_abs_err(got, want)
         if err:
             raise AssertionError(
-                f"kexec[{sched.name}] differs from its plain version: {err}")
-        worst = max(worst, err)
+                f"kexec[{sched.name}] differs from its plain version at "
+                f"batch {n}: {err}")
         ms = time_ms(lambda: kern(ins), reps=10)
         ops, n_mul, n_cheap = table_ops(kern.table, nw)
         bms, by = bound(
             (len(sched.inputs) + len(sched.outputs)) * 4 * spec.nl * n,
             ops * n)
-        row = {"program": sched.name, "batch": n, "ms": ms,
-               "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by,
-               "muls": n_mul, "cheap_ops": n_cheap, "n_regs": sched.n_regs,
-               "rows": int(kern.table.shape[0])}
-        programs.append(row)
-        if sched.name == "fp12_mul":
-            main = row
+        programs.append({
+            "program": sched.name, "batch": n, "ms": ms,
+            "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by,
+            "muls": n_mul, "cheap_ops": n_cheap, "n_regs": sched.n_regs,
+            "rows": int(kern.table.shape[0])})
+    # the row's own figures: the largest launch the main path makes
+    main = max((r for r in programs if r["program"] == "fp12_mul"),
+               key=lambda r: r["batch"])
     return {
         "name": "kexec", "route": "cuda",
         "source": "ripp_tpu_torch/csrc/kexec.cu",
         "replaces": "ripp_tpu/ops/kexec.py:247",
-        "equal": True, "max_abs_err": worst,
-        # the main path launches it on the Fp12 product program
+        "equal": True, "max_abs_err": 0,
         "shape": [main["batch"], spec.nl], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
@@ -238,50 +308,45 @@ def check_kexec(ctx, plain_ctx, dp, n_step, n_f12):
     }
 
 
-def miller_inputs(ctx, n, seed):
-    """n affine pairs (xP, yP, qx, qy) on the card from seeded scalars."""
-    host = ctx.host
-    rng = random.Random(seed)
-    a = [rng.randrange(1, host.r) for _ in range(n)]
-    b = [rng.randrange(1, host.r) for _ in range(n)]
-    A = host.g1.scalar_mul_batch(host.g1_gen, a)
-    B = host.g2.scalar_mul_batch(host.g2_gen, b)
-    g1a = ctx.g1.normalize(ctx.g1_to_dev(A))
-    g2a = ctx.g2.normalize(ctx.g2_to_dev(B))
-    return g1a[0], g1a[1], g2a[0], g2a[1]
-
-
-def check_miller(ctx, plain_ctx, dp, plain_dp, n_check, timed_inputs):
-    from ripp_tpu_torch.ops.tower import tree_leaves
+def check_miller(ctx, dp, plain_dp, batches, affine):
+    """The fused Miller kernel against the plain loop at every batch of
+    `batches`, on the main path's own affine points (the first n of
+    `affine`); timed at the largest."""
+    from ripp_tpu_torch.ops.tower import tree_leaves, tree_map
 
     spec = ctx.t.spec_fp
     nw = spec.nl // 2
     fm = dp.fused
-    xP, yP, qx, qy = miller_inputs(ctx, n_check, SEED + 2)
-    got = tree_leaves(fm.miller(xP, yP, qx, qy))
-    sync()
-    plain_ms, want = host_ms(
-        lambda: tree_leaves(plain_dp._miller_impl(xP, yP, qx, qy)))
-    err = max_abs_err(got, want)
-    if err:
-        raise AssertionError(f"fused Miller differs from the plain loop: {err}")
-    txP, tyP, tqx, tqy = timed_inputs
-    n = txP.shape[0]
-    ms = time_ms(lambda: fm.miller(txP, tyP, tqx, tqy), reps=3, warm=1)
+    checked = []
+    for n in sorted(batches):
+        ins = tree_map(lambda x: x[:n].contiguous(), affine)
+        got = tree_leaves(fm.miller(*ins))
+        sync()
+        plain_ms, want = host_ms(
+            lambda: tree_leaves(plain_dp._miller_impl(*ins)))
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(
+                f"fused Miller differs from the plain loop at {n} pairs: "
+                f"{err}")
+        ms = time_ms(lambda: fm.miller(*ins), reps=3, warm=1)
+        checked.append({"pairs": n, "ms": ms, "plain_ms": plain_ms})
     d_ops, d_mul, d_cheap = table_ops(fm.dbl_table, nw)
     a_ops, a_mul, a_cheap = table_ops(fm.add_table, nw)
     n_dbl, n_add = len(fm.x_bits), sum(fm.x_bits)
     ops = n_dbl * d_ops + n_add * a_ops
+    top = checked[-1]
+    n = top["pairs"]
     bms, by = bound((6 + 12) * 4 * spec.nl * n, ops * n)
     return {
         "name": "fused_miller", "route": "cuda",
         "source": "ripp_tpu_torch/csrc/miller.cu",
         "replaces": "ripp_tpu/ops/pairing_fused.py:327",
-        "equal": True, "max_abs_err": err,
-        "checked_pairs": n_check, "shape": [n, spec.nl], "ms": ms,
-        "plain_ms": plain_ms, "plain_shape": [n_check, spec.nl],
+        "equal": True, "max_abs_err": 0,
+        "checked": checked, "shape": [n, spec.nl], "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "pairs_per_s": n / (ms * 1e-3),
+        "pairs_per_s": n / (top["ms"] * 1e-3),
         "muls_per_pair": n_dbl * d_mul + n_add * a_mul,
         "cheap_ops_per_pair": n_dbl * d_cheap + n_add * a_cheap,
         "n_regs": fm.n_regs,
@@ -382,7 +447,40 @@ def main_full(ctx, dp, sizes, fixtures):
               "pairs_per_s_end_to_end": n / (best["total_ms"] * 1e-3),
               "runs": rows,
               "timing": "host clock around synchronised calls, min of 3"})
+    fp12_routes(ctx, dp, batch(max(sizes)))
     return counts
+
+
+def fp12_routes(ctx, dp, inputs):
+    """Time the product tree and the final exponentiation with the Fp12
+    products taken two ways on the same Miller values: as programs of the
+    executor (what multi_pairing does on the card) and through the stacked
+    tower (one Montgomery launch and the add / sub / neg launches a
+    product). The results must agree."""
+    from ripp_tpu_torch.ops.pairing import DevPairing
+
+    tower = DevPairing(ctx)
+    tower.f12_mul, tower.f12_sqr = tower.fp12.mul, tower.fp12.sqr
+    P, Q = inputs
+    f = dp.miller_batch(ctx.g1.normalize(P), ctx.g2.normalize(Q))
+    out = {"phase": "fp12_routes", "n": int(P[0].shape[0]),
+           "timing": "host clock around synchronised calls, min of 3"}
+    results = []
+    for name, d in (("programs", dp), ("tower", tower)):
+        t_prod, t_fin = [], []
+        for _ in range(3):
+            reset_counts()
+            t, prod = host_ms(lambda: d.product_reduce(f))
+            t_prod.append(t)
+            t, z = host_ms(lambda: d.finalize_product(prod))
+            t_fin.append(t)
+        results.append(z)
+        out[name] = {"product_ms": min(t_prod), "final_exp_ms": min(t_fin),
+                     "product_runs": t_prod, "final_exp_runs": t_fin,
+                     "launches": read_counts()}
+    if results[0] != results[1]:
+        raise AssertionError("the two Fp12 routes disagree")
+    emit(out)
 
 
 def main():
@@ -431,18 +529,21 @@ def main():
     B = host.g2.scalar_mul_batch(host.g2_gen, b)
     emit({"phase": "fixtures", "pairs": n_max, "seconds": time.time() - t0})
 
-    # phase 2: kernels
+    # phase 2: kernels, at the batches the main path gives them
+    fixtures = (a, b, A, B)
+    seen = main_path_shapes(ctx, dp, sizes, fixtures)
+    emit({"phase": "main_path_shapes", "sizes": list(sizes),
+          "fp_mul_batches": sorted(seen.fp_mul),
+          "kexec_batches": sorted(seen.kexec),
+          "fused_miller_batches": sorted(seen.miller)})
     g1a = ctx.g1.normalize(ctx.g1_to_dev(A))
     g2a = ctx.g2.normalize(ctx.g2_to_dev(B))
-    timed = (g1a[0], g1a[1], g2a[0], g2a[1])
-    if args.quick:
-        rows = [check_fp_mul(ctx, plain_ctx, 1 << 12, 3 * n_max),
-                check_kexec(ctx, plain_ctx, dp, 64, 64),
-                check_miller(ctx, plain_ctx, dp, plain_dp, 4, timed)]
-    else:
-        rows = [check_fp_mul(ctx, plain_ctx, 1 << 20, 3 * n_max),
-                check_kexec(ctx, plain_ctx, dp, 1024, n_max),
-                check_miller(ctx, plain_ctx, dp, plain_dp, 64, timed)]
+    affine = (g1a[0], g1a[1], g2a[0], g2a[1])
+    rows = [check_fp_mul(ctx, plain_ctx, seen.fp_mul,
+                         1 << (12 if args.quick else 20)),
+            check_kexec(ctx, plain_ctx, dp, seen.kexec,
+                        64 if args.quick else 1024),
+            check_miller(ctx, dp, plain_dp, seen.miller, affine)]
     emit({"phase": "kernels_checked",
           "kernels": [{k: r[k] for k in ("name", "equal", "ms", "plain_ms")}
                       for r in rows]})
@@ -451,7 +552,7 @@ def main():
     main_checked(ctx, dp)
 
     # phase 4: main path, full size
-    counts = main_full(ctx, dp, sizes, (a, b, A, B))
+    counts = main_full(ctx, dp, sizes, fixtures)
     for r in rows:
         r["launches"] = counts[r["name"]]
         if r["launches"] < 1:

@@ -115,8 +115,8 @@ def fp_mul(spec: FieldSpec, a, b):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ripp_fp_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                               n, stream)
-    launches += 1
     check_launch(err, "ripp_fp_mul")
+    launches += 1
     return out
 
 
@@ -130,6 +130,6 @@ def fp_cheap(spec: FieldSpec, op: str, a, b):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ripp_fp_cheap(_CHEAP_OPS[op], a.data_ptr(), b.data_ptr(),
                                 out.data_ptr(), n, stream)
-    cheap_launches += 1
     check_launch(err, "ripp_fp_cheap")
+    cheap_launches += 1
     return out

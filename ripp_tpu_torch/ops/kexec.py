@@ -248,6 +248,6 @@ class ProgramKernel:
                 out.data_ptr(), t["out_regs"].data_ptr(), len(s.outputs),
                 regs.data_ptr(), B, block_threads(B),
                 torch.cuda.current_stream().cuda_stream)
-        ProgramKernel.launches += 1
         check_launch(err, "ripp_kexec")
+        ProgramKernel.launches += 1
         return [o.reshape(*bshape, spec.nl) for o in out]

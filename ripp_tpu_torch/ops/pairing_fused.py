@@ -341,8 +341,8 @@ class FusedMiller:
                     in_arr.data_ptr(), out.data_ptr(), regs.data_ptr(),
                     B, block_threads(B),
                     torch.cuda.current_stream().cuda_stream)
-            FusedMiller.launches += 1
             check_launch(err, "ripp_miller")
+            FusedMiller.launches += 1
         return [o.reshape(*bshape, spec.nl) for o in out]
 
 

@@ -167,6 +167,69 @@ def test_fp12_program_kernels_equal_stacked_tower(op):
     assert dp.f12_mul(a, b) is not None  # CPU tensors: the stacked tower
 
 
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_fp12_program_kernels_equal_reference_tower_nano(op):
+    """The same Fp12 programs against the JAX package's tower, limb for
+    limb from the same limbs, with the edge operands 0, 1, p-1 among the
+    coefficients: tolerance zero."""
+    import random
+
+    import jax
+
+    from ripp_tpu.ops import tower as ref_tower
+
+    tr = ref_tower.dev_tower("bls12_nano")
+    ctx = dev_ctx("bls12_nano", device="cpu")
+    mul_k, sqr_k = dev_pairing(ctx)._build_f12_kernels()
+    p = tr.curve.p
+    F12 = tr.curve.tower.fp12
+    rng = random.Random(9)
+
+    def elems():
+        out = [F12.fromlist([rng.randrange(p) for _ in range(12)])
+               for _ in range(5)]
+        out.append(F12.fromlist([0, 1, p - 1] * 4))
+        out.append(F12.one())
+        return out
+
+    a_ref, b_ref = tr.fp12_to_dev(elems()), tr.fp12_to_dev(elems())
+    a = from_reference(jax.tree.map(np.asarray, a_ref), "cpu")
+    b = from_reference(jax.tree.map(np.asarray, b_ref), "cpu")
+    if op == "mul":
+        want = tr.fp12.mul(a_ref, b_ref)
+        got = mul_k(tree_leaves(a) + tree_leaves(b))
+    else:
+        want = tr.fp12.sqr(a_ref)
+        got = sqr_k(tree_leaves(a))
+    want = [np.asarray(w) for w in jax.tree.leaves(want)]
+    assert len(got) == len(want) == 12
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(to_reference(g), w)
+
+
+@pytest.mark.parametrize("curve_name", ["bls12_nano", "bls12_toy"])
+def test_multi_pairing_through_fp12_programs_equals_host(curve_name):
+    """The route the card takes (product tree and final exponentiation as
+    Fp12 programs of the executor), driven on the CPU, where the executor
+    runs its plain version: the pairing product still equals the host
+    model and the stacked-tower route."""
+    from ripp_tpu_torch.ops.kexec import ProgramKernel
+    from ripp_tpu_torch.ops.pairing import DevPairing
+
+    ctx = dev_ctx(curve_name, device="cpu")
+    host = ctx.host
+    A, B = _pairs(host, 8)
+    dp = DevPairing(ctx)
+    dp._on_card = lambda f: True
+    before = ProgramKernel.launches
+    got = dp.multi_pairing(ctx.g1_to_dev(A), ctx.g2_to_dev(B))
+    assert ProgramKernel.launches == before  # CPU tensors: no kernel launch
+    assert dp._f12_kernels is not None       # the programs did run
+    assert got == hp.multi_pairing(host, A, B)
+    assert got == dev_pairing(ctx).multi_pairing(
+        ctx.g1_to_dev(A), ctx.g2_to_dev(B))
+
+
 def test_convert_round_trip():
     arr = np.arange(24, dtype=np.uint32).reshape(2, 3, 4)
     mask = np.asarray([True, False])
