@@ -1,30 +1,50 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the full run (needs one card)
-    python3 chip_smoke.py --quick    # build + kernel checks at small sizes
+    python3 chip_smoke.py --quick    # build + checks at small sizes only
 
-The main path is the inner pairing product Z = prod e(A_i, B_i) on
-BLS12-381: `dev_ctx` -> `g1/g2_to_dev` -> `DevPairing.multi_pairing`
-(normalize, fused Miller loop, Fp12 product tree, final exponentiation).
+Two main paths, both on BLS12-381 at full width (Fp 381 bits, NL = 24;
+Fr 255 bits, NL = 16):
+  * the inner pairing product Z = prod e(A_i, B_i): `dev_ctx` ->
+    `g1/g2_to_dev` -> `DevPairing.multi_pairing` (normalize, fused Miller
+    loop, Fp12 product tree, final exponentiation);
+  * the SIPP protocol above it: `models.sipp.prove` (per-element 255-bit
+    rescale, then log2(n) rounds of two pairing products and a G1 and a
+    G2 fold) and `models.sipp.verify` (one batched GT exponentiation, two
+    challenge-product vectors over Fr, two Pippenger MSMs, one host
+    pairing).
 
 Phases (a failure in any of them ends the run with a non-zero exit code
 and no result line):
-  1. build: compile the CUDA library from ripp_tpu_torch/csrc with nvcc.
-  2. kernels: multi_pairing is driven once at each size while the batch
-     every kernel wrapper is given is noted; then each kernel's wrapper is
-     held against its plain PyTorch version on the card at every one of
-     those batches, same inputs (numpy from a seed, or the main path's own
-     affine points), exact equality of every limb (integer arithmetic: the
-     tolerance is zero); then timed.
-  3. main path, checked: multi_pairing at n = 8 with two identity pairs
-     against the host model (Python bigints).
-  4. main path, full size: multi_pairing at n = 256, 2048, 4096 with
+  1. build: compile the CUDA libraries from ripp_tpu_torch/csrc with nvcc,
+     one for Fp and one for Fr.
+  2. kernels: both paths are driven once at their sizes (multi_pairing at
+     each size; SIPP prove and verify at n = 8 and at the full n) while
+     the batch (and bit shape) every kernel wrapper is given is noted;
+     then each kernel's wrapper is held against its plain PyTorch version
+     on the card at every one of those shapes, same inputs (numpy from a
+     seed, or the main path's own points), exact equality of every limb
+     (integer arithmetic: the tolerance is zero); then timed. The plain
+     versions of the Miller loop, the ladder and the GT exponentiation
+     work element by element, so each runs once over all of a kernel's
+     shapes concatenated (a shared scalar repeated for each element) and
+     each launch is compared with its slice.
+  3. main paths, checked: multi_pairing at n = 8 with two identity pairs
+     against the host model (Python bigints); SIPP at n = 8 round by
+     round: every (z_l, z_r) against the host model's pairing products
+     on the host-folded vectors, verify accepts, and rejects a proof with
+     one GT element changed and a wrong claimed value.
+  4. main paths, full size: multi_pairing at n = 256, 2048, 4096 with
      A_i = a_i*G1, B_i = b_i*G2; the result must equal
-     e(G1, G2)^(sum a_i*b_i mod r). Launch counts are set to 0 before and
-     read after. Only then are the per-phase times taken and printed,
-     and the product tree and final exponentiation are timed a second way
-     (Fp12 products through the stacked tower instead of the program
-     executor) for comparison.
+     e(G1, G2)^(sum a_i*b_i mod r). SIPP at n = 4096 on the same points
+     with r from the seed: product_of_pairings_with_coeffs must equal
+     e(G1, G2)^(sum r_i*a_i*b_i mod r), verify(prove(...)) must be True,
+     a tampered proof and a wrong value False. Launch counts are set to 0
+     before each path and read after. Only then are the per-phase times
+     taken and printed (min of 3, host clock with a synchronise inside,
+     fresh input buffers), and the product tree and final exponentiation
+     are timed a second way (Fp12 products through the stacked tower
+     instead of the program executor) for comparison.
 
 Output: JSON objects, one a line; then the card's name and power limit as
 nvidia-smi prints them; then the {"kernels": [...]} line; the last line
@@ -139,22 +159,26 @@ def gpu_line():
 # ---------------------------------------------------------------------------
 
 class ShapeCensus:
-    """While active, note the batch each kernel wrapper is given (the
+    """While active, note the shape each kernel wrapper is given (the
     wrappers themselves keep only a count of launches)."""
 
     def __enter__(self):
         from ripp_tpu_torch.ops import fp_cuda
+        from ripp_tpu_torch.ops.curve_fused import FusedLadder
         from ripp_tpu_torch.ops.kexec import ProgramKernel
-        from ripp_tpu_torch.ops.pairing_fused import FusedMiller
+        from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 
         self.fp_mul, self.kexec, self.miller = set(), set(), set()
+        self.ladder, self.gtexp = set(), set()
         self._saved = (fp_cuda.fp_mul, ProgramKernel._launch,
-                       FusedMiller._launch)
-        fp_mul, k_launch, m_launch = self._saved
+                       FusedMiller._launch, FusedLadder._launch,
+                       FusedGtExp._launch)
+        fp_mul, k_launch, m_launch, l_launch, g_launch = self._saved
 
         def seen_fp_mul(spec, a, b):
             shape = torch.broadcast_shapes(a.shape, b.shape)
-            self.fp_mul.add(int(np.prod(shape[:-1], dtype=np.int64)))
+            self.fp_mul.add(
+                (spec.name, int(np.prod(shape[:-1], dtype=np.int64))))
             return fp_mul(spec, a, b)
 
         def seen_kexec(kern, inputs, masks, bshape):
@@ -166,90 +190,118 @@ class ShapeCensus:
             self.miller.add(int(np.prod(xP.shape[:-1], dtype=np.int64)))
             return m_launch(fm, xP, yP, qx, qy)
 
+        def seen_ladder(fl, flat, bits):
+            self.ladder.add((fl.group,
+                             int(np.prod(flat[0].shape[:-1], dtype=np.int64)),
+                             int(bits.shape[-1]), bits.dim() == 1))
+            return l_launch(fl, flat, bits)
+
+        def seen_gtexp(fg, leaves, bits):
+            self.gtexp.add((int(bits.shape[0]), int(bits.shape[1])))
+            return g_launch(fg, leaves, bits)
+
         fp_cuda.fp_mul = seen_fp_mul
         ProgramKernel._launch = seen_kexec
         FusedMiller._launch = seen_miller
+        FusedLadder._launch = seen_ladder
+        FusedGtExp._launch = seen_gtexp
         return self
 
     def __exit__(self, *exc):
         from ripp_tpu_torch.ops import fp_cuda
+        from ripp_tpu_torch.ops.curve_fused import FusedLadder
         from ripp_tpu_torch.ops.kexec import ProgramKernel
-        from ripp_tpu_torch.ops.pairing_fused import FusedMiller
+        from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 
-        fp_cuda.fp_mul, ProgramKernel._launch, FusedMiller._launch = \
-            self._saved
+        (fp_cuda.fp_mul, ProgramKernel._launch, FusedMiller._launch,
+         FusedLadder._launch, FusedGtExp._launch) = self._saved
         return False
 
 
-def main_path_shapes(ctx, dp, sizes, fixtures):
-    """Drive multi_pairing once at each size and return the batches the
-    three kernels were given."""
-    _, _, A, B = fixtures
+def main_path_shapes(ctx, dp, sizes, fixtures, sipp_sizes):
+    """Drive multi_pairing once at each size and SIPP prove + verify at
+    each SIPP size; return the shapes the kernels were given."""
+    from ripp_tpu_torch.models import sipp
+
+    _, _, A, B, r = fixtures
     P_all, Q_all = ctx.g1_to_dev(A), ctx.g2_to_dev(B)
     with ShapeCensus() as seen:
         for n in sizes:
             dp.multi_pairing(
                 tuple(x[:n].clone() for x in P_all),
                 tuple(tuple(c[:n].clone() for c in q) for q in Q_all))
+        for n in sipp_sizes:
+            value = sipp_value(ctx, A[:n], B[:n], r[:n])
+            proof = sipp.prove(ctx, A[:n], B[:n], r[:n], value)
+            if not sipp.verify(ctx, A[:n], B[:n], r[:n], value, proof):
+                raise AssertionError(f"SIPP verify failed at n = {n}")
         sync()
     return seen
 
 
 def check_fp_mul(ctx, plain_ctx, batches, n_rate):
-    """fp_mul against mont_mul_limbs at every batch of `batches` (those the
-    main path gives it), with the edge operands; timed at the largest of
-    them; `n_rate` elements only for the elements-a-second figure."""
+    """fp_mul against mont_mul_limbs at every (field, batch) of `batches`
+    (those the main paths give it), with the edge operands, for the base
+    field and the scalar field; timed at the largest batch of each;
+    `n_rate` elements only for the elements-a-second figure."""
     from ripp_tpu_torch.ops import fp_cuda
     from ripp_tpu_torch.ops.fp import limbs_tensor
 
-    spec = ctx.t.spec_fp
-    fp, pfp = ctx.t.fp, plain_ctx.t.fp
     rng = np.random.default_rng(SEED)
-    # edge operands 0, 1, p-1, R mod p, every pair of them
-    edge = limbs_tensor(spec.to_mont_limbs([0, 1, spec.p - 1, spec.r]),
-                        ctx.device)
-    ea = edge.repeat_interleave(4, dim=0)
-    eb = edge.repeat(4, 1)
-    got = fp.mul(ea, eb)
-    if max_abs_err([got], [pfp.mul(ea, eb)]):
-        raise AssertionError("fp_mul edge products differ from plain")
-    p = spec.p
-    ev = [0, 1, p - 1, spec.r % p]
-    if spec.from_mont_limbs(got) != [x * y % p for x in ev for y in ev]:
-        raise AssertionError("fp_mul edge products differ from bigints")
-
-    checked = []
-    for n in sorted(batches):
-        a = random_limbs(rng, spec, n, ctx.device)
-        b = random_limbs(rng, spec, n, ctx.device)
-        # the edge operands ride in the first lanes where there is room
-        k = min(n, 16)
-        a[:k], b[:k] = ea[:k], eb[:k]
-        err = max_abs_err([fp.mul(a, b)], [pfp.mul(a, b)])
-        if err:
-            raise AssertionError(
-                f"fp_mul differs from its plain version at batch {n}: {err}")
-        checked.append(n)
-
-    n_time = max(batches)
-    ta = random_limbs(rng, spec, n_time, ctx.device)
-    tb = random_limbs(rng, spec, n_time, ctx.device)
-    ms = time_ms(lambda: fp_cuda.fp_mul(spec, ta, tb), reps=20)
-    plain_ms = time_ms(lambda: fp_cuda.mont_mul_limbs(spec, ta, tb),
-                       reps=2, warm=1)
+    fields = {}
+    for name, fp, pfp in ((ctx.t.spec_fp.name, ctx.t.fp, plain_ctx.t.fp),
+                          (ctx.t.spec_fr.name, ctx.t.fr, plain_ctx.t.fr)):
+        spec = fp.spec
+        # edge operands 0, 1, p-1, R mod p, every pair of them
+        edge = limbs_tensor(spec.to_mont_limbs([0, 1, spec.p - 1, spec.r]),
+                            ctx.device)
+        ea = edge.repeat_interleave(4, dim=0)
+        eb = edge.repeat(4, 1)
+        got = fp.mul(ea, eb)
+        if max_abs_err([got], [pfp.mul(ea, eb)]):
+            raise AssertionError(f"fp_mul[{name}] edge products differ")
+        p = spec.p
+        ev = [0, 1, p - 1, spec.r % p]
+        if spec.from_mont_limbs(got) != [x * y % p for x in ev for y in ev]:
+            raise AssertionError(f"fp_mul[{name}] edge products != bigints")
+        mine = sorted(b for f, b in batches if f == name)
+        for n in mine:
+            a = random_limbs(rng, spec, n, ctx.device)
+            b = random_limbs(rng, spec, n, ctx.device)
+            # the edge operands ride in the first lanes where there is room
+            k = min(n, 16)
+            a[:k], b[:k] = ea[:k], eb[:k]
+            err = max_abs_err([fp.mul(a, b)], [pfp.mul(a, b)])
+            if err:
+                raise AssertionError(
+                    f"fp_mul[{name}] differs from its plain version at "
+                    f"batch {n}: {err}")
+        n_time = max(mine)
+        ta = random_limbs(rng, spec, n_time, ctx.device)
+        tb = random_limbs(rng, spec, n_time, ctx.device)
+        ms = time_ms(lambda: fp_cuda.fp_mul(spec, ta, tb), reps=20)
+        plain_ms = time_ms(lambda: fp_cuda.mont_mul_limbs(spec, ta, tb),
+                           reps=2, warm=1)
+        nw = spec.nl // 2
+        bms, by = bound(3 * 4 * spec.nl * n_time,
+                        n_time * 2 * (2 * nw * nw + nw))
+        fields[name] = {"checked_batches": mine, "shape": [n_time, spec.nl],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                        "bound_by": by}
+    spec = ctx.t.spec_fp
     ra = random_limbs(rng, spec, n_rate, ctx.device)
     rb = random_limbs(rng, spec, n_rate, ctx.device)
     ms_rate = time_ms(lambda: fp_cuda.fp_mul(spec, ra, rb), reps=20)
-    nw = spec.nl // 2
-    bms, by = bound(3 * 4 * spec.nl * n_time,
-                    n_time * 2 * (2 * nw * nw + nw))
+    main = fields[spec.name]
     return {
         "name": "fp_mul", "route": "cuda",
         "source": "ripp_tpu_torch/csrc/fp_mul.cu",
         "replaces": "ripp_tpu/ops/fp_pallas.py:211",
-        "equal": True, "max_abs_err": 0, "checked_batches": checked,
-        "shape": [n_time, spec.nl], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "equal": True, "max_abs_err": 0,
+        "shape": main["shape"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "fields": fields,
         "elements_per_s": n_rate / (ms_rate * 1e-3),
         "elements_per_s_at": n_rate,
     }
@@ -257,7 +309,7 @@ def check_fp_mul(ctx, plain_ctx, batches, n_rate):
 
 def check_kexec(ctx, plain_ctx, dp, shapes, n_step):
     """The program executor against the plain executor: the Fp12 programs
-    at every (program, batch) of `shapes` (those the main path gives it)
+    at every (program, batch) of `shapes` (those the main paths give it)
     and the two Miller step programs at `n_step` elements."""
     from ripp_tpu_torch.ops.kexec import ProgramKernel
 
@@ -293,7 +345,7 @@ def check_kexec(ctx, plain_ctx, dp, shapes, n_step):
             "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by,
             "muls": n_mul, "cheap_ops": n_cheap, "n_regs": sched.n_regs,
             "rows": int(kern.table.shape[0])})
-    # the row's own figures: the largest launch the main path makes
+    # the row's own figures: the largest launch the main paths make
     main = max((r for r in programs if r["program"] == "fp12_mul"),
                key=lambda r: r["batch"])
     return {
@@ -311,26 +363,30 @@ def check_kexec(ctx, plain_ctx, dp, shapes, n_step):
 def check_miller(ctx, dp, plain_dp, batches, affine):
     """The fused Miller kernel against the plain loop at every batch of
     `batches`, on the main path's own affine points (the first n of
-    `affine`); timed at the largest."""
+    `affine` for a batch of n). The plain loop runs once over all the
+    batches concatenated; each launch is compared with its slice. Timed
+    at every batch."""
     from ripp_tpu_torch.ops.tower import tree_leaves, tree_map
 
     spec = ctx.t.spec_fp
     nw = spec.nl // 2
     fm = dp.fused
+    sizes = sorted(batches)
+    cat = tree_map(lambda x: torch.cat([x[:n] for n in sizes]), affine)
+    plain_ms, want = host_ms(lambda: tree_leaves(plain_dp._miller_impl(*cat)))
     checked = []
-    for n in sorted(batches):
+    off = 0
+    for n in sizes:
         ins = tree_map(lambda x: x[:n].contiguous(), affine)
         got = tree_leaves(fm.miller(*ins))
-        sync()
-        plain_ms, want = host_ms(
-            lambda: tree_leaves(plain_dp._miller_impl(*ins)))
-        err = max_abs_err(got, want)
+        err = max_abs_err(got, [w[off:off + n] for w in want])
         if err:
             raise AssertionError(
                 f"fused Miller differs from the plain loop at {n} pairs: "
                 f"{err}")
+        off += n
         ms = time_ms(lambda: fm.miller(*ins), reps=3, warm=1)
-        checked.append({"pairs": n, "ms": ms, "plain_ms": plain_ms})
+        checked.append({"pairs": n, "ms": ms})
     d_ops, d_mul, d_cheap = table_ops(fm.dbl_table, nw)
     a_ops, a_mul, a_cheap = table_ops(fm.add_table, nw)
     n_dbl, n_add = len(fm.x_bits), sum(fm.x_bits)
@@ -344,7 +400,7 @@ def check_miller(ctx, dp, plain_dp, batches, affine):
         "replaces": "ripp_tpu/ops/pairing_fused.py:327",
         "equal": True, "max_abs_err": 0,
         "checked": checked, "shape": [n, spec.nl], "ms": top["ms"],
-        "plain_ms": top["plain_ms"],
+        "plain_ms": plain_ms, "plain_pairs": int(off),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "pairs_per_s": n / (top["ms"] * 1e-3),
         "muls_per_pair": n_dbl * d_mul + n_add * a_mul,
@@ -353,28 +409,167 @@ def check_miller(ctx, dp, plain_dp, batches, affine):
     }
 
 
+def random_bits(rng, shape, device):
+    return torch.from_numpy(
+        rng.integers(0, 2, size=shape, dtype=np.uint8)).to(device)
+
+
+def check_ladder(ctx, plain_ctx, group, shapes, points):
+    """The fused ladder of one group against the plain double-and-add at
+    every (batch, nbits, shared) of `shapes`, on the main path's own
+    points (the first n of `points`) with bits drawn from the seed. One
+    plain run per bit length over all its shapes concatenated (a shared
+    scalar repeated for each element). Timed at every shape."""
+    from ripp_tpu_torch.ops.curve_fused import fused_ladder
+    from ripp_tpu_torch.ops.tower import tree_leaves, tree_map
+
+    spec = ctx.t.spec_fp
+    nw = spec.nl // 2
+    fl = fused_ladder(ctx, group)
+    pcurve = plain_ctx.g1 if group == "g1" else plain_ctx.g2
+    rng = np.random.default_rng(SEED + 2 + (group == "g2"))
+    mine = sorted((b, nb, sh) for g, b, nb, sh in shapes if g == group)
+    rows = []
+    plain_runs = []
+    for nbits in sorted({nb for _, nb, _ in mine}):
+        cases = [(b, sh) for b, nb, sh in mine if nb == nbits]
+        ins, bits, per_elem = [], [], []
+        for b, sh in cases:
+            ins.append(tree_map(lambda x: x[:b].contiguous(), points))
+            bt = random_bits(rng, (nbits,) if sh else (b, nbits), ctx.device)
+            bits.append(bt)
+            per_elem.append(bt.expand(b, nbits) if sh else bt)
+        cat = tree_map(lambda *xs: torch.cat(xs), *ins)
+        pms, want = host_ms(lambda: tree_leaves(pcurve._scalar_mul_bits_impl(
+            cat, torch.cat(per_elem))))
+        plain_runs.append({"nbits": nbits, "elements": int(
+            sum(b for b, _ in cases)), "plain_ms": pms})
+        off = 0
+        for (b, sh), P, bt in zip(cases, ins, bits):
+            got = tree_leaves(fl.scalar_mul_bits(P, bt))
+            err = max_abs_err(got, [w[off:off + b] for w in want])
+            if err:
+                raise AssertionError(
+                    f"fused ladder {group} differs from the plain ladder at "
+                    f"{b} x {nbits} bits (shared={sh}): {err}")
+            off += b
+            ms = time_ms(lambda: fl.scalar_mul_bits(P, bt), reps=3, warm=1)
+            d_ops, _, _ = table_ops(fl.dbl_table, nw)
+            a_ops, _, _ = table_ops(fl.add_table, nw)
+            n_io = 6 * fl.d * 4 * spec.nl * b + (nbits if sh else nbits * b)
+            bms, by = bound(n_io, nbits * (d_ops + a_ops) * b)
+            rows.append({"batch": b, "nbits": nbits, "shared": sh, "ms": ms,
+                         "bound_ms": bms, "bound_by": by,
+                         "plain_ms_of_run": pms})
+    # the row's own figures: the rescale (per element) for g1, the
+    # largest fold for g2
+    main = max(rows, key=lambda r: (not r["shared"], r["batch"]))
+    _, d_mul, d_cheap = table_ops(fl.dbl_table, nw)
+    _, a_mul, a_cheap = table_ops(fl.add_table, nw)
+    return {
+        "name": f"fused_ladder_{group}", "route": "cuda",
+        "source": "ripp_tpu_torch/csrc/ladder.cu",
+        "replaces": "ripp_tpu/ops/curve_fused.py:195",
+        "equal": True, "max_abs_err": 0,
+        "shape": [main["batch"], main["nbits"]], "shared": main["shared"],
+        "ms": main["ms"], "plain_ms": main["plain_ms_of_run"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "checked": rows, "plain_runs": plain_runs,
+        "muls_per_bit": d_mul + a_mul, "cheap_ops_per_bit": d_cheap + a_cheap,
+        "n_regs": fl.n_regs,
+    }
+
+
+def check_gtexp(ctx, plain_dp, dp, shapes):
+    """The fused GT exponentiation against the plain square and multiply
+    at every (batch, nbits) of `shapes`, on random Fp12 values and bits
+    from the seed (the step is the same for any Fp12 value). One plain run
+    over all shapes concatenated. Timed at every shape."""
+    from ripp_tpu_torch.ops.pairing_fused import fused_gtexp
+    from ripp_tpu_torch.ops.tower import tree_leaves
+
+    spec = ctx.t.spec_fp
+    nw = spec.nl // 2
+    fg = fused_gtexp(ctx)
+    rng = np.random.default_rng(SEED + 5)
+    rows = []
+    plain_runs = []
+    for nbits in sorted({nb for _, nb in shapes}):
+        cases = sorted(b for b, nb in shapes if nb == nbits)
+        ins = [[random_limbs(rng, spec, b, ctx.device) for _ in range(12)]
+               for b in cases]
+        bits = [random_bits(rng, (b, nbits), ctx.device) for b in cases]
+        cat = dp._nest12([torch.cat(xs) for xs in zip(*ins)])
+        pms, want = host_ms(lambda: tree_leaves(
+            plain_dp.gt_exp_tree(cat, torch.cat(bits))))
+        plain_runs.append({"nbits": nbits, "elements": int(sum(cases)),
+                           "plain_ms": pms})
+        off = 0
+        for b, leaves, bt in zip(cases, ins, bits):
+            f = dp._nest12(leaves)
+            got = tree_leaves(fg(f, bt))
+            err = max_abs_err(got, [w[off:off + b] for w in want])
+            if err:
+                raise AssertionError(
+                    f"fused GT exp differs from the plain loop at "
+                    f"{b} x {nbits} bits: {err}")
+            off += b
+            ms = time_ms(lambda: fg(f, bt), reps=3, warm=1)
+            ops, _, _ = table_ops(fg.table, nw)
+            bms, by = bound(24 * 4 * spec.nl * b + nbits * b,
+                            nbits * ops * b)
+            rows.append({"batch": b, "nbits": nbits, "ms": ms,
+                         "bound_ms": bms, "bound_by": by,
+                         "plain_ms_of_run": pms})
+    main = max(rows, key=lambda r: r["batch"])
+    _, n_mul, n_cheap = table_ops(fg.table, nw)
+    return {
+        "name": "fused_gtexp", "route": "cuda",
+        "source": "ripp_tpu_torch/csrc/gtexp.cu",
+        "replaces": "ripp_tpu/ops/pairing_fused.py:544",
+        "equal": True, "max_abs_err": 0,
+        "shape": [main["batch"], main["nbits"]], "ms": main["ms"],
+        "plain_ms": main["plain_ms_of_run"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "checked": rows, "plain_runs": plain_runs,
+        "muls_per_bit": n_mul, "cheap_ops_per_bit": n_cheap,
+        "n_regs": fg.n_regs,
+    }
+
+
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the main path
+# phases 3 and 4: the main paths
 # ---------------------------------------------------------------------------
+
+KERNELS = ("fp_mul", "kexec", "fused_miller", "fused_ladder_g1",
+           "fused_ladder_g2", "fused_gtexp")
+
 
 def reset_counts():
     from ripp_tpu_torch.ops import fp_cuda
+    from ripp_tpu_torch.ops.curve_fused import FusedLadder
     from ripp_tpu_torch.ops.kexec import ProgramKernel
-    from ripp_tpu_torch.ops.pairing_fused import FusedMiller
+    from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 
     fp_cuda.launches = 0
     fp_cuda.cheap_launches = 0
     ProgramKernel.launches = 0
     FusedMiller.launches = 0
+    FusedLadder.launches = {"g1": 0, "g2": 0}
+    FusedGtExp.launches = 0
 
 
 def read_counts():
     from ripp_tpu_torch.ops import fp_cuda
+    from ripp_tpu_torch.ops.curve_fused import FusedLadder
     from ripp_tpu_torch.ops.kexec import ProgramKernel
-    from ripp_tpu_torch.ops.pairing_fused import FusedMiller
+    from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 
     return {"fp_mul": fp_cuda.launches, "kexec": ProgramKernel.launches,
             "fused_miller": FusedMiller.launches,
+            "fused_ladder_g1": FusedLadder.launches["g1"],
+            "fused_ladder_g2": FusedLadder.launches["g2"],
+            "fused_gtexp": FusedGtExp.launches,
             "fp_cheap_helpers": fp_cuda.cheap_launches}
 
 
@@ -397,13 +592,79 @@ def main_checked(ctx, dp):
           "equal_to_host_model": True})
 
 
+def sipp_value(ctx, A, B, r):
+    from ripp_tpu_torch.models import sipp
+    from ripp_tpu_torch.models.vectors import FrVec, PointVec
+
+    return sipp.product_of_pairings_with_coeffs(
+        ctx, PointVec.from_host(ctx, "g1", A),
+        PointVec.from_host(ctx, "g2", B), FrVec.from_ints(ctx, r))
+
+
+def tampered(host, proof):
+    """The proof with one GT element changed (squared: still in GT)."""
+    from ripp_tpu_torch.models import sipp
+
+    elems = list(proof.gt_elems)
+    k = len(elems) // 2
+    z_l, z_r = elems[k]
+    elems[k] = (z_l, host.tower.fp12.mul(z_r, z_r))
+    return sipp.SIPPProof(gt_elems=elems)
+
+
+def sipp_checked(ctx, fixtures, n=8):
+    """SIPP at n = 8, every round against the host model: z_l, z_r are
+    the host's pairing products on the host-folded vectors."""
+    from ripp_tpu_torch.host import pairing as hp
+    from ripp_tpu_torch.models import sipp
+    from ripp_tpu_torch.utils.fiat_shamir import FiatShamirRng
+    from ripp_tpu_torch.utils.serialize import CurveSerializer
+
+    host = ctx.host
+    _, _, A, B, r = fixtures
+    A, B, r = A[:n], B[:n], r[:n]
+    value = sipp_value(ctx, A, B, r)
+    a = [host.g1.scalar_mul(p, k) for p, k in zip(A, r)]
+    b = list(B)
+    if value != hp.multi_pairing(host, a, b):
+        raise AssertionError("SIPP(n=8): the claimed value != host model")
+    proof = sipp.prove(ctx, A, B, r, value)
+    s = CurveSerializer(host)
+    rng = FiatShamirRng(sipp._instance_seed(ctx, A, B, r, value))
+    for i, (z_l, z_r) in enumerate(proof.gt_elems):
+        h = len(a) // 2
+        a_l, a_r, b_l, b_r = a[:h], a[h:], b[:h], b[h:]
+        if (z_l != hp.multi_pairing(host, a_r, b_l)
+                or z_r != hp.multi_pairing(host, a_l, b_r)):
+            raise AssertionError(f"SIPP(n=8) round {i} != host model")
+        rng.absorb(s.gt(z_l) + s.gt(z_r))
+        x = rng.next_u128()
+        x_inv = pow(x, -1, host.r)
+        a = [host.g1.add(host.g1.scalar_mul(p, x), q)
+             for p, q in zip(a_r, a_l)]
+        b = [host.g2.add(host.g2.scalar_mul(p, x_inv), q)
+             for p, q in zip(b_r, b_l)]
+    if len(a) != 1:
+        raise AssertionError("SIPP(n=8): wrong number of rounds")
+    wrong = hp.gt_mul(host, value, value)
+    result = {
+        "honest": sipp.verify(ctx, A, B, r, value, proof),
+        "tampered": sipp.verify(ctx, A, B, r, value, tampered(host, proof)),
+        "wrong_value": sipp.verify(ctx, A, B, r, wrong, proof),
+    }
+    if result != {"honest": True, "tampered": False, "wrong_value": False}:
+        raise AssertionError(f"SIPP(n=8) verify: {result}")
+    emit({"phase": "sipp_checked", "n": n, "rounds": len(proof.gt_elems),
+          "rounds_equal_to_host_model": True, "verify": result})
+
+
 def main_full(ctx, dp, sizes, fixtures):
     """Drive multi_pairing at each size, check it, then time its phases.
     Returns the launch counts of the checked runs (all sizes together)."""
     from ripp_tpu_torch.host import pairing as hp
 
     host = ctx.host
-    a, b, A, B = fixtures
+    a, b, A, B, _ = fixtures
     e_gen = hp.pairing(host, host.g1_gen, host.g2_gen)
     P_all, Q_all = ctx.g1_to_dev(A), ctx.g2_to_dev(B)
     sync()
@@ -483,6 +744,160 @@ def fp12_routes(ctx, dp, inputs):
     emit(out)
 
 
+def sipp_full(ctx, fixtures, n):
+    """SIPP at n: the claimed value against the generator power, then
+    prove + verify with the launch counts set to 0 before and read after,
+    then the rejections; only then the times. Returns the counts."""
+    from ripp_tpu_torch.host import pairing as hp
+    from ripp_tpu_torch.models import sipp
+
+    host = ctx.host
+    a, b, A, B, r = fixtures
+    A, B, r = A[:n], B[:n], r[:n]
+    value = sipp_value(ctx, A, B, r)
+    s = sum(ri * x * y for ri, x, y in zip(r, a, b)) % host.r
+    if value != hp.gt_exp(host, hp.pairing(host, host.g1_gen, host.g2_gen),
+                          s):
+        raise AssertionError(
+            f"product_of_pairings_with_coeffs(n={n}) != "
+            "e(G1,G2)^(sum r_i a_i b_i)")
+    sync()
+    reset_counts()
+    proof = sipp.prove(ctx, A, B, r, value)
+    ok = sipp.verify(ctx, A, B, r, value, proof)
+    sync()
+    counts = read_counts()
+    wrong = hp.gt_mul(host, value, value)
+    result = {
+        "honest": ok,
+        "tampered": sipp.verify(ctx, A, B, r, value, tampered(host, proof)),
+        "wrong_value": sipp.verify(ctx, A, B, r, wrong, proof),
+    }
+    if result != {"honest": True, "tampered": False, "wrong_value": False}:
+        raise AssertionError(f"SIPP(n={n}) verify: {result}")
+    emit({"phase": "sipp_full_checked", "n": n,
+          "value_equal_to_generator_power": True, "verify": result,
+          "rounds": len(proof.gt_elems), "launches": counts})
+    sipp_times(ctx, A, B, r, value, proof)
+    return counts
+
+
+def sipp_times(ctx, A, B, r, value, proof):
+    """Min of 3 on the host clock of prove and verify as a whole, and of
+    each of their steps, run one by one as the two functions run them
+    (the stepwise prover must give the same proof). One line a step."""
+    from ripp_tpu_torch.host import pairing as hp
+    from ripp_tpu_torch.models import sipp
+    from ripp_tpu_torch.models.vectors import (
+        FrVec, PointVec, challenge_product_vec)
+    from ripp_tpu_torch.ops.pairing import dev_pairing
+    from ripp_tpu_torch.utils.fiat_shamir import FiatShamirRng
+    from ripp_tpu_torch.utils.serialize import CurveSerializer
+
+    host = ctx.host
+    n = len(A)
+    s = CurveSerializer(host)
+    steps = {}
+
+    def t(name, fn):
+        ms, out = host_ms(fn)
+        steps.setdefault(name, [0.0] * 3)[rep] += ms
+        return ms, out
+
+    per_round = []
+    for rep in range(3):
+        # --- prove, step by step (models/sipp.py prove, prove_rounds)
+        _, seed = t("instance_seed", lambda: sipp._instance_seed(
+            ctx, A, B, r, value))
+        rng = FiatShamirRng(seed)
+        _, (a, b, rv) = t("to_device", lambda: (
+            PointVec.from_host(ctx, "g1", A), PointVec.from_host(ctx, "g2", B),
+            FrVec.from_ints(ctx, r)))
+        _, a = t("rescale", lambda: a.hadamard_scale(rv))
+        elems, rounds = [], []
+        while len(a) != 1:
+            a_l, a_r, b_l, b_r = a.lo(), a.hi(), b.lo(), b.hi()
+            pm, (z_l, z_r) = t("round_pairings", lambda: (
+                sipp.product_of_pairings(ctx, a_r, b_l),
+                sipp.product_of_pairings(ctx, a_l, b_r)))
+            elems.append((z_l, z_r))
+            rng.absorb(s.gt(z_l) + s.gt(z_r))
+            x = rng.next_u128()
+            x_inv = pow(x, -1, host.r)
+            f1, a = t("fold_g1", lambda: a_r.fold(a_l, x))
+            f2, b = t("fold_g2", lambda: b_r.fold(b_l, x_inv))
+            rounds.append({"n": len(a_l), "pairings_ms": pm,
+                           "fold_g1_ms": f1, "fold_g2_ms": f2})
+        if elems != proof.gt_elems:
+            raise AssertionError("the stepwise prover gave another proof")
+        per_round.append(rounds)
+        # --- verify, step by step (models/sipp.py verify)
+        rng = FiatShamirRng(sipp._instance_seed(ctx, A, B, r, value))
+        x_s = []
+        for z_l, z_r in proof.gt_elems:
+            rng.absorb(s.gt(z_l) + s.gt(z_r))
+            x_s.append(rng.next_u128())
+        x_invs = [pow(x, -1, host.r) for x in x_s]
+        gts = [z for pair in proof.gt_elems for z in pair]
+        exps = [e for x, xi in zip(x_s, x_invs) for e in (x, xi)]
+        _, parts = t("gt_exp_batch", lambda: dev_pairing(ctx).gt_exp_batch(
+            gts, exps))
+        z_prime = value
+        for p in parts:
+            z_prime = hp.gt_mul(host, z_prime, p)
+        L = len(x_s)
+
+        def msb(i, j):
+            return (i >> (L - 1 - j)) & 1
+
+        _, (ss, s_invs) = t("challenge_products", lambda: (
+            challenge_product_vec(ctx, x_s, n, msb).hadamard(
+                FrVec.from_ints(ctx, r)),
+            challenge_product_vec(ctx, x_invs, n, msb)))
+        _, (av, bv) = t("to_device_verify", lambda: (
+            PointVec.from_host(ctx, "g1", A),
+            PointVec.from_host(ctx, "g2", B)))
+        _, a_p = t("msm_g1", lambda: av.msm(ss))
+        _, b_p = t("msm_g2", lambda: bv.msm(s_invs))
+        _, ok = t("host_pairing", lambda: hp.pairing(host, a_p, b_p) == z_prime)
+        if not ok:
+            raise AssertionError("the stepwise verifier rejected the proof")
+    for name, runs in steps.items():
+        emit({"phase": "sipp_step_times", "n": n, "step": name,
+              "ms": min(runs), "runs": runs,
+              "timing": "host clock around synchronised calls, min of 3"})
+    best = min(range(3), key=lambda k: sum(x["pairings_ms"]
+                                           for x in per_round[k]))
+    emit({"phase": "sipp_round_times", "n": n, "rounds": per_round[best],
+          "timing": "host clock, the run of 3 with the least pairing time"})
+    totals = {"prove_ms": [], "verify_ms": []}
+    for _ in range(3):
+        ms, pf = host_ms(lambda: sipp.prove(ctx, A, B, r, value))
+        totals["prove_ms"].append(ms)
+        ms, ok = host_ms(lambda: sipp.verify(ctx, A, B, r, value, pf))
+        totals["verify_ms"].append(ms)
+        if not ok:
+            raise AssertionError("verify rejected a timed proof")
+    emit({"phase": "sipp_times", "n": n,
+          "prove_ms": min(totals["prove_ms"]),
+          "verify_ms": min(totals["verify_ms"]), "runs": totals,
+          "timing": "host clock around synchronised calls, min of 3"})
+
+
+def build_all(ctx, verbose):
+    """Both libraries (Fp and Fr), built side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ripp_tpu_torch.utils import build
+
+    specs = (ctx.t.spec_fp, ctx.t.spec_fr)
+    with ThreadPoolExecutor(len(specs)) as ex:
+        list(ex.map(lambda sp: build.load_library(sp, verbose=verbose),
+                    specs))
+    return {build.library_key(sp): build.BUILD_SECONDS[build.library_key(sp)]
+            for sp in specs}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -504,60 +919,79 @@ def main():
 
     # phase 1: build
     ctx = dev_ctx("bls12_381")
-    spec = ctx.t.spec_fp
-    build.load_library(spec, verbose=args.verbose_build)
-    key = build.library_key(spec)
-    emit({"phase": "build", "seconds": build.BUILD_SECONDS[key],
-          "library": key, "card": card,
+    t0 = time.time()
+    seconds = build_all(ctx, args.verbose_build)
+    emit({"phase": "build", "seconds": seconds,
+          "wall_seconds": time.time() - t0, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     if args.verbose_build:
-        print(build.BUILD_LOG.get(key, ""), flush=True)
+        for key in seconds:
+            print(build.BUILD_LOG.get(key, ""), flush=True)
 
     plain_ctx = dev_ctx("bls12_381", plain=True)
     dp = dev_pairing(ctx)
     plain_dp = dev_pairing(plain_ctx)
 
-    # fixtures of the full-size run, made once (host, native C group law)
+    # fixtures of the full-size runs, made once (host, native C group law)
     sizes = (8,) if args.quick else (256, 2048, 4096)
+    sipp_n = 8 if args.quick else 4096
     host = ctx.host
     rng = random.Random(SEED + 4)
-    n_max = max(sizes)
+    n_max = max(max(sizes), sipp_n)
     a = [rng.randrange(1, host.r) for _ in range(n_max)]
     b = [rng.randrange(1, host.r) for _ in range(n_max)]
+    r = [rng.randrange(host.r) for _ in range(n_max)]
     t0 = time.time()
     A = host.g1.scalar_mul_batch(host.g1_gen, a)
     B = host.g2.scalar_mul_batch(host.g2_gen, b)
     emit({"phase": "fixtures", "pairs": n_max, "seconds": time.time() - t0})
+    fixtures = (a, b, A, B, r)
 
-    # phase 2: kernels, at the batches the main path gives them
-    fixtures = (a, b, A, B)
-    seen = main_path_shapes(ctx, dp, sizes, fixtures)
+    # phase 2: kernels, at the shapes the main paths give them
+    sipp_sizes = sorted({8, sipp_n})
+    seen = main_path_shapes(ctx, dp, sizes, fixtures, sipp_sizes)
     emit({"phase": "main_path_shapes", "sizes": list(sizes),
+          "sipp_sizes": sipp_sizes,
           "fp_mul_batches": sorted(seen.fp_mul),
           "kexec_batches": sorted(seen.kexec),
-          "fused_miller_batches": sorted(seen.miller)})
-    g1a = ctx.g1.normalize(ctx.g1_to_dev(A))
-    g2a = ctx.g2.normalize(ctx.g2_to_dev(B))
+          "fused_miller_batches": sorted(seen.miller),
+          "fused_ladder_shapes": [
+              {"group": g, "batch": bt, "nbits": nb, "shared": sh}
+              for g, bt, nb, sh in sorted(seen.ladder)],
+          "fused_gtexp_shapes": [
+              {"batch": bt, "nbits": nb} for bt, nb in sorted(seen.gtexp)]})
+    P_all, Q_all = ctx.g1_to_dev(A), ctx.g2_to_dev(B)
+    g1a, g2a = ctx.g1.normalize(P_all), ctx.g2.normalize(Q_all)
     affine = (g1a[0], g1a[1], g2a[0], g2a[1])
     rows = [check_fp_mul(ctx, plain_ctx, seen.fp_mul,
                          1 << (12 if args.quick else 20)),
             check_kexec(ctx, plain_ctx, dp, seen.kexec,
                         64 if args.quick else 1024),
-            check_miller(ctx, dp, plain_dp, seen.miller, affine)]
+            check_miller(ctx, dp, plain_dp, seen.miller, affine),
+            check_ladder(ctx, plain_ctx, "g1", seen.ladder, P_all),
+            check_ladder(ctx, plain_ctx, "g2", seen.ladder, Q_all),
+            check_gtexp(ctx, plain_dp, dp, seen.gtexp)]
     emit({"phase": "kernels_checked",
-          "kernels": [{k: r[k] for k in ("name", "equal", "ms", "plain_ms")}
-                      for r in rows]})
+          "kernels": [{k: rw[k] for k in ("name", "equal", "ms", "plain_ms")}
+                      for rw in rows]})
 
-    # phase 3: main path, checked against the host model
+    # phase 3: main paths, checked against the host model
     main_checked(ctx, dp)
+    sipp_checked(ctx, fixtures)
 
-    # phase 4: main path, full size
-    counts = main_full(ctx, dp, sizes, fixtures)
-    for r in rows:
-        r["launches"] = counts[r["name"]]
-        if r["launches"] < 1:
-            raise AssertionError(
-                f"the main path never launched kernel {r['name']}")
+    # phase 4: main paths, full size
+    by_path = {"multi_pairing": main_full(ctx, dp, sizes, fixtures),
+               "sipp": sipp_full(ctx, fixtures, sipp_n)}
+    for rw in rows:
+        name = rw["name"]
+        rw["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        rw["launches"] = by_path["sipp"][name]
+        needs = ("sipp", "multi_pairing") if name in KERNELS[:3] else (
+            "sipp",)
+        for p in needs:
+            if by_path[p][name] < 1:
+                raise AssertionError(
+                    f"the {p} path never launched kernel {name}")
 
     emit({"phase": "done", "seconds": time.time() - t_start,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})

@@ -1,5 +1,8 @@
 // The register machine: one thread runs one batch element through the flat
 // instruction table of a scheduled field program (ops/kexec.py encode_table).
+// The program kernel (kexec.cu), the fused Miller loop (miller.cu), the
+// fused ladder (ladder.cu) and the fused GT exponentiation (gtexp.cu) all
+// run their tables through exec_table below.
 //
 // Replaces exec_segments / read_reg / write_reg of ripp_tpu/ops/kexec.py.
 // There the register file was a VMEM scratch [n_regs, NL, 8, 128] and each

@@ -8,11 +8,17 @@ eprint 2015/1060): total, so no data-dependent branches.
 Generic over a field-ops object (DevFp for G1, device Fp2 for G2) plus the
 curve constant b3 = 3*b, so one class serves G1/G2 on every curve.
 
-Counterpart of ripp_tpu/ops/curve.py. Not ported yet: scalar_mul_bits,
-sum_reduce, DevEdwardsCurve. Dropped: chunk_plan / CHUNK_TIERS /
-MIN_REDUCE_BATCH, which padded batches to a few shapes so that XLA
-compiled few executables; nothing here compiles per shape, so a batch is
-launched whole.
+Scalar multiplication (`scalar_mul_bits`): on the card it is one launch
+of the fused ladder kernel (ops/curve_fused.py, K4), with no switch: the
+JAX package made its Pallas ladder opt-in because of minutes of Mosaic
+compile, a cost nvcc does not have. The plain double-and-add loop
+(`_scalar_mul_bits_impl`) runs on the CPU and in a plain context; the two
+are bit-identical.
+
+Counterpart of ripp_tpu/ops/curve.py. Not ported yet: DevEdwardsCurve.
+Dropped: chunk_plan / CHUNK_TIERS / MIN_REDUCE_BATCH, which padded batches
+to a few shapes so that XLA compiled few executables; nothing here
+compiles per shape, so a batch is launched whole.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ class DevSWCurve:
         self.F = F
         self.b3 = b3  # 3*b as a device field element
         self.name = name
+        # set by DevCurveCtx (ops/points.py) on a context that launches
+        # kernels: returns the group's FusedLadder
+        self._fused_ladder_factory = None
 
     # --- identities ----------------------------------------------------------
     def identity_like(self, x):
@@ -132,6 +141,30 @@ class DevSWCurve:
     def select(self, mask, P, Q):
         return tree_select(mask, P, Q)
 
+    # --- scalar multiplication ------------------------------------------------
+    def scalar_mul_bits(self, P, bits):
+        """P * k where bits holds k's bits MSB first (0/1), shape [nbits]
+        (a scalar shared by the batch) or [batch..., nbits] (one scalar an
+        element). On CUDA tensors: one launch of the fused ladder kernel;
+        elsewhere (or in a plain context) the plain loop below."""
+        if (self._fused_ladder_factory is not None
+                and tree_leaves(P)[0].is_cuda):
+            return self._fused_ladder_factory().scalar_mul_bits(P, bits)
+        return self._scalar_mul_bits_impl(P, bits)
+
+    def _scalar_mul_bits_impl(self, P, bits):
+        """Plain double-and-add, MSB first: double, add P, keep the sum
+        where the bit is set (the add is complete, so no branches). The
+        JAX package's lax.scan ladder, as a Python loop over the bits."""
+        shared = bits.dim() == 1
+        acc = self.identity_like(P[0])
+        for i in range(bits.shape[-1]):
+            acc = self.double(acc)
+            added = self.add(acc, P)
+            mask = (bits[i] if shared else bits[..., i]) > 0
+            acc = self.select(mask, added, acc)
+        return acc
+
     # --- normalization ---------------------------------------------------------
     def normalize(self, P):
         """(X:Y:Z) -> (x, y, is_inf): affine coordinates via field inversion.
@@ -165,6 +198,15 @@ class DevSWCurve:
         y_eq = self._tree_feq(F.mul(P[1], Q[2]), F.mul(Q[1], P[2]))
         p_inf, q_inf = self.is_identity(P), self.is_identity(Q)
         return ~(p_inf ^ q_inf) & ((p_inf & q_inf) | (x_eq & y_eq))
+
+    # --- reductions -------------------------------------------------------------
+    def sum_reduce(self, P):
+        """Sum a batch of points along axis 0 to one point: log2(n)
+        shift-and-add steps (ops/reduce.py scan_reduce, the JAX package's
+        order of additions)."""
+        from .reduce import scan_reduce
+
+        return scan_reduce(self.add, P, tree_leaves(P)[0].shape[0])
 
     @staticmethod
     def _tree_feq(a, b):

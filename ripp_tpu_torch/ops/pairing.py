@@ -20,9 +20,14 @@ kernel (ops/pairing_fused.py) and every field product through the
 Montgomery kernel (ops/fp_cuda.py); on CPU tensors, or in a plain context,
 the plain versions run.
 
-Counterpart of ripp_tpu/ops/pairing.py. Not ported yet: gt_exp_batch and
-the RNS branch of miller_product. multi_pairing launches the whole batch
-at once (no chunk tiers, see ops/curve.py).
+`gt_exp_batch` on the card is one launch of the fused GT-exponentiation
+kernel (ops/pairing_fused.py FusedGtExp); elsewhere the plain square and
+multiply over the tower.
+
+Counterpart of ripp_tpu/ops/pairing.py. Not ported yet: the RNS branch of
+miller_product. multi_pairing launches the whole batch at once (no chunk
+tiers, see ops/curve.py), and gt_exp_batch launches the batch it is given
+(the JAX package padded it to 64 to keep one XLA executable).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ class DevPairing:
         t = ctx.t
         self.fp, self.fp2, self.fp6, self.fp12 = t.fp, t.fp2, t.fp6, t.fp12
         self._fused = None
+        self._gtexp_fused = None
         self._f12_kernels = None
 
     @property
@@ -471,6 +477,47 @@ class DevPairing:
             self._cyc_conj(g2),
         )
         return mul(g3, g)
+
+    # ---- batched GT exponentiation ---------------------------------------------
+    def gt_exp_batch(self, gs, es):
+        """Batched GT exponentiation: host GT list [k], host int exponents
+        [k] -> host GT list. MSB-first square and multiply over all
+        r.bit_length() bits of every exponent (reduced mod r)."""
+        import numpy as np
+
+        host = self.ctx.host
+        k = len(gs)
+        if k == 0:
+            return []
+        nbits = host.r.bit_length()
+        bits = np.zeros((k, nbits), dtype=np.uint8)
+        for i, e in enumerate(es):
+            e = e % host.r
+            for j in range(nbits):
+                bits[i, j] = (e >> (nbits - 1 - j)) & 1
+        f = self.ctx.t.fp12_to_dev(list(gs))
+        bits = torch.from_numpy(bits).to(self.ctx.device)
+        return self.ctx.t.fp12_from_dev(self.gt_exp_tree(f, bits))
+
+    def gt_exp_tree(self, f, bits):
+        """f^e on an Fp12 tree of [k, NL] leaves, bits [k, nbits] (0/1,
+        MSB first): one launch of the fused kernel on the card, the plain
+        square and multiply elsewhere (bit-identical)."""
+        from .tower import tree_select
+
+        if self._on_card(f):
+            if self._gtexp_fused is None:
+                from .pairing_fused import fused_gtexp
+
+                self._gtexp_fused = fused_gtexp(self.ctx)
+            return self._gtexp_fused(f, bits)
+        F12 = self.fp12
+        out = self._ones_fp12((bits.shape[0],))
+        for j in range(bits.shape[1]):
+            sq = F12.sqr(out)
+            wm = F12.mul(sq, f)
+            out = tree_select(bits[:, j] > 0, wm, sq)
+        return out
 
     def finalize_product(self, prod, conj_for_x: bool = True):
         """[1, ...] Miller-product tree -> host GT element, with the

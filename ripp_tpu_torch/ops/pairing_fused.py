@@ -13,7 +13,10 @@ so the fused kernel's Miller values are BIT-IDENTICAL to the plain loop
 Counterpart of ripp_tpu/ops/pairing_fused.py. `FusedMiller` is the
 wrapper of ripp_miller (csrc/miller.cu), which replaces the Pallas kernel
 of FusedMiller._call there; that source's note says what bounds it on the
-card. FusedGtExp is not ported yet.
+card. `FusedGtExp` is the wrapper of ripp_gtexp (csrc/gtexp.cu), which
+replaces the Pallas kernel of FusedGtExp._call: the whole batched GT
+exponentiation in one launch, with the step program of
+`_build_gtexp_prog`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from .kexec import (
 )
 from .fp import LIMB_DTYPE, limbs_tensor
 from .kprog import KProg, prog_tower, schedule
+from .tower import tree_leaves
 
 
 def _build_step_progs(curve):
@@ -355,4 +359,139 @@ def fused_miller(ctx) -> FusedMiller:
     key = id(ctx)
     if key not in _FUSED:
         _FUSED[key] = FusedMiller(ctx)
+    return _FUSED[key]
+
+
+# ---------------------------------------------------------------------------
+# Fused GT exponentiation
+# ---------------------------------------------------------------------------
+
+def _build_gtexp_prog(curve):
+    """One GT square-and-multiply step: acc' = bit ? acc^2 * g : acc^2.
+
+    Traced once into the kprog IR. Input layout is pinned (acc 12, g 12
+    in registers 0..23) so the looped kernel can keep both resident in
+    the register file across all exponent bits."""
+    prog = KProg(curve.name + ".gtexp_step")
+    fp, fp2, fp6, fp12, _ = prog_tower(prog, curve)
+
+    def decl12():
+        return tuple(
+            tuple(tuple(prog.inp() for _ in range(2)) for _ in range(3))
+            for _ in range(2)
+        )
+
+    acc = decl12()
+    g = decl12()
+    bit = prog.mask_inp()
+    sq = fp12.sqr(acc)
+    wm = fp12.mul(sq, g)
+    outs = []
+    for i in range(2):
+        for j in range(3):
+            for k in range(2):
+                outs.append(prog.sel(bit, wm[i][j][k], sq[i][j][k]))
+    prog.out(outs)
+    return schedule(prog, pin_inputs=True)
+
+
+class FusedGtExp:
+    """One-launch batched GT exponentiation.
+
+    Call with (f_tree, bits): f_tree an Fp12 tree of [k, NL] leaves, bits
+    a [k, nbits] 0/1 tensor, MSB first. Returns the Fp12 tree of f^e,
+    bit-identical to the plain square and multiply of
+    DevPairing.gt_exp_batch. CUDA tensors take one launch of the kernel;
+    CPU tensors replay the same table with the plain field ops."""
+
+    launches = 0  # class-wide count of ripp_gtexp launches
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+        self.fp = ctx.t.fp
+        self.spec = ctx.t.spec_fp
+        self.sched = _build_gtexp_prog(ctx.host)
+        s = self.sched
+        assert s.inputs == list(range(24)) and len(s.outputs) == 12
+        # the step program, then its outputs copied to registers 0..11
+        cp, self.n_regs = copy_rows(s.outputs, 0, s.n_regs)
+        self.table = np.concatenate([encode_table(s), cp])
+        self._dev = {}
+
+    def __call__(self, f_tree, bits):
+        leaves = tree_leaves(f_tree)
+        if leaves[0].is_cuda:
+            rows = self._launch(leaves, bits)
+        else:
+            rows = self._replay(leaves, bits)
+        return (
+            ((rows[0], rows[1]), (rows[2], rows[3]), (rows[4], rows[5])),
+            ((rows[6], rows[7]), (rows[8], rows[9]), (rows[10], rows[11])),
+        )
+
+    def _replay(self, leaves, bits):
+        """Plain version of the kernel: its own table, run with run_table
+        over the bits."""
+        fp = self.fp
+        g = leaves[0]
+        one = fp.one().expand(g.shape)
+        zero = torch.zeros_like(g)
+        regs = dict(enumerate([one] + [zero] * 11 + list(leaves)))
+        consts = limbs_tensor(const_limbs(self.spec, self.sched.consts),
+                              g.device)
+        for i in range(bits.shape[-1]):
+            for mr in self.sched.mask_inputs:
+                regs[mr] = bits[:, i] > 0
+            run_table(fp, self.table, consts, regs)
+        return [regs[k] for k in range(12)]
+
+    def _device_tables(self, device):
+        t = self._dev.get(device)
+        if t is None:
+            s = self.sched
+            t = dict(
+                tab=torch.from_numpy(self.table).to(device),
+                consts=torch.from_numpy(
+                    const_words(self.spec, s.consts)).to(device),
+                mask_regs=torch.tensor(s.mask_inputs, dtype=torch.int32,
+                                       device=device),
+            )
+            self._dev[device] = t
+        return t
+
+    def _launch(self, leaves, bits):
+        from ..utils.build import load_library
+        from .fp_cuda import check_launch, check_operand
+
+        spec = self.spec
+        device = leaves[0].device
+        for x in list(leaves) + [bits]:
+            if x.device != device:
+                raise ValueError(f"operands on {x.device} and {device}")
+        B, nbits = bits.shape
+        in_arr = stack_inputs(spec, leaves, (B,))
+        check_operand(spec, in_arr, "inputs")
+        bit_arr = bits.t().to(torch.uint8).contiguous()  # [nbits, B]
+        out = torch.empty((12, B, spec.nl), dtype=LIMB_DTYPE, device=device)
+        if B:
+            regs = regfile(self.n_regs, spec, B, device)
+            t = self._device_tables(device)
+            lib = load_library(spec)
+            with torch.cuda.device(device):
+                err = lib.ripp_gtexp(
+                    t["tab"].data_ptr(), self.table.shape[0],
+                    t["consts"].data_ptr(), t["mask_regs"].data_ptr(),
+                    len(self.sched.mask_inputs), bit_arr.data_ptr(), nbits,
+                    in_arr.data_ptr(), out.data_ptr(), regs.data_ptr(),
+                    B, block_threads(B),
+                    torch.cuda.current_stream().cuda_stream)
+            check_launch(err, "ripp_gtexp")
+            FusedGtExp.launches += 1
+        return list(out)
+
+
+def fused_gtexp(ctx) -> FusedGtExp:
+    key = ("gtexp", id(ctx))
+    if key not in _FUSED:
+        _FUSED[key] = FusedGtExp(ctx)
     return _FUSED[key]

@@ -2,20 +2,26 @@
 
 `DevCurveCtx` is the device-side counterpart of host `PairingCurve`: G1 over
 DevFp, G2 over device Fp2, with host<->device point conversion (affine
-host tuples <-> projective limb pytrees).
+host tuples <-> projective limb pytrees), and the scalar -> bits helpers
+that feed the ladders.
 
-Counterpart of ripp_tpu/ops/points.py. Not ported yet: the fused-ladder
-factories, scalar_bits / scalars_to_bits / fr_limbs_to_bits, BW6DevCtx.
+Bits are uint8 tensors of 0/1, MSB first: [nbits] for a scalar shared by
+the whole batch, [batch..., nbits] for one scalar an element (the JAX
+package keeps them in uint32; the values are the same).
+
+Counterpart of ripp_tpu/ops/points.py. Not ported yet: BW6DevCtx.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .curve import DevSWCurve
+from .fp import LIMB_BITS
 from .tower import DevTower, dev_tower, resolve_device
 
 
@@ -33,6 +39,20 @@ class DevCurveCtx:
         b3_g2_host = c.tower.fp2.mul_int(c.g2.b, 3)
         b3_g2 = (fp.const(b3_g2_host[0]), fp.const(b3_g2_host[1]))
         self.g2 = DevSWCurve(fp2, b3_g2, name=c.name + ".dev.g2")
+
+        # the one-launch ladder kernel (ops/curve_fused.py): what
+        # scalar_mul_bits runs on the card; a plain context has none
+        def _ladder(group):
+            def make():
+                from .curve_fused import fused_ladder
+
+                return fused_ladder(self, group)
+
+            return make
+
+        if not self.plain:
+            self.g1._fused_ladder_factory = _ladder("g1")
+            self.g2._fused_ladder_factory = _ladder("g2")
 
     # --- host -> device -------------------------------------------------------
     def _inf_mask(self, pts):
@@ -69,6 +89,45 @@ class DevCurveCtx:
         ys = self.t.fp2_from_dev(y)
         infs = inf.reshape(-1).tolist()
         return [None if i else (a, b) for a, b, i in zip(xs, ys, infs)]
+
+    # --- scalars ---------------------------------------------------------------
+    def scalar_bits(self, k: int, nbits: int) -> torch.Tensor:
+        """Host int -> MSB-first bit vector [nbits] (shared-scalar form)."""
+        k = int(k)
+        return torch.tensor(
+            [(k >> (nbits - 1 - i)) & 1 for i in range(nbits)],
+            dtype=torch.uint8, device=self.device)
+
+    def scalars_to_bits(self, ks: Sequence[int], nbits: int) -> torch.Tensor:
+        """Host ints -> MSB-first bit matrix [n, nbits]."""
+        out = np.zeros((len(ks), nbits), dtype=np.uint8)
+        for j, k in enumerate(ks):
+            k = int(k)
+            for i in range(nbits):
+                out[j, i] = (k >> (nbits - 1 - i)) & 1
+        return torch.from_numpy(out).to(self.device)
+
+    def fr_limbs_to_bits(self, fr_mont, nbits: Optional[int] = None):
+        """Fr Montgomery limbs [..., NL] -> MSB-first bits [..., nbits] on
+        the device: out of Montgomery form by a product with plain 1 (one
+        Montgomery-kernel launch on the card), then every limb's bits."""
+        fr = self.t.fr
+        nbits = nbits or fr.p.bit_length()
+        one_plain = torch.zeros((fr.nl,), dtype=fr_mont.dtype,
+                                device=fr_mont.device)
+        one_plain[0] = 1
+        canon = fr.mul(fr_mont, one_plain)
+        return limb_bits(canon, nbits).flip(-1)
+
+
+def limb_bits(limbs, nbits: int) -> torch.Tensor:
+    """16-bit limbs [..., NL] -> their LSB-first bits [..., nbits] (uint8;
+    bits beyond the limbs are 0)."""
+    shifts = torch.arange(LIMB_BITS, dtype=limbs.dtype, device=limbs.device)
+    bits = ((limbs.unsqueeze(-1) >> shifts) & 1).flatten(-2)
+    if bits.shape[-1] < nbits:
+        bits = torch.nn.functional.pad(bits, (0, nbits - bits.shape[-1]))
+    return bits[..., :nbits].to(torch.uint8)
 
 
 @functools.lru_cache(maxsize=None)

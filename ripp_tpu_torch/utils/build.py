@@ -185,6 +185,14 @@ _SIGNATURES = {
     # batch, threads, stream
     "ripp_miller": [_VP, _I, _VP, _I, _VP, _ULL, _I, _VP, _VP, _VP,
                     _LL, _I, _VP],
+    # dbl_tab, n_dbl, add_tab, n_add, cp_tab, n_cp, consts, bits, nbits,
+    # bit_step, elem_step, d, in, out, regs, batch, threads, stream
+    "ripp_ladder": [_VP, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _LL, _LL, _I,
+                    _VP, _VP, _VP, _LL, _I, _VP],
+    # tab, n_instr, consts, mask_regs, n_mask, bits, nbits, in, out, regs,
+    # batch, threads, stream
+    "ripp_gtexp": [_VP, _I, _VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _LL, _I,
+                   _VP],
 }
 
 

@@ -8,6 +8,12 @@ array, a bool mask, or a nested tuple of them) to the port's tensors on a
 device; `to_reference` goes back to numpy uint32 (bool stays bool). The
 tests feed both packages the same limbs through these and compare limb for
 limb. numpy only: nothing of either package's device runtime is imported.
+
+Protocol vectors cross the same way: `vec_from_reference` takes a
+reference FrVec / PointVec (read through its `arr` / `pts`, `n` and `grp`
+attributes) to the port's, `vec_to_reference` gives a port vector's limbs
+as numpy. GT values need no conversion: both packages hand them to the
+host as the same nested tuples of Python ints.
 """
 
 from __future__ import annotations
@@ -39,3 +45,19 @@ def to_reference(tree):
     if arr.dtype == np.bool_:
         return arr
     return arr.astype(np.uint32)
+
+
+def vec_from_reference(ctx, vec):
+    """A reference FrVec or PointVec -> the port's, on ctx's device."""
+    from ..models.vectors import FrVec, PointVec
+
+    if hasattr(vec, "grp"):
+        pts = from_reference(vec.pts, ctx.device)
+        return PointVec(ctx, vec.grp, pts, vec.n)
+    return FrVec(ctx, from_reference(vec.arr, ctx.device), vec.n)
+
+
+def vec_to_reference(vec):
+    """A port FrVec / PointVec -> its limbs as numpy (a uint32 array or a
+    nested tuple of them)."""
+    return to_reference(vec.pts if hasattr(vec, "grp") else vec.arr)

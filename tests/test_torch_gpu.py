@@ -20,7 +20,8 @@ from ripp_tpu_torch.ops import fp_cuda
 from ripp_tpu_torch.ops.fp import DevFp, limbs_tensor, make_spec
 from ripp_tpu_torch.ops.kexec import ProgramKernel
 from ripp_tpu_torch.ops.pairing import dev_pairing
-from ripp_tpu_torch.ops.pairing_fused import FusedMiller
+from ripp_tpu_torch.ops.curve_fused import FusedLadder
+from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 from ripp_tpu_torch.ops.points import dev_ctx
 from ripp_tpu_torch.ops.tower import tree_leaves
 
@@ -93,3 +94,66 @@ def test_fused_miller_kernel_equals_plain_loop(cuda_device):
     want = tree_leaves(dev_pairing(plain)._miller_impl(*ins))
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("curve_name", ["bls12_toy", "bls12_381"])
+def test_fused_ladder_kernel_equals_plain_ladder(cuda_device, curve_name,
+                                                 group, shared):
+    ctx = dev_ctx(curve_name, device=cuda_device)
+    plain = dev_ctx(curve_name, device=cuda_device, plain=True)
+    host = ctx.host
+    n = 37
+    rng = random.Random(len(curve_name) + shared)
+    nbits = host.r.bit_length()
+    if group == "g1":
+        pts = [host.g1.scalar_mul(host.g1_gen, 3 * i + 2) for i in range(n)]
+        pts[4] = None
+        P, curve, pcurve = ctx.g1_to_dev(pts), ctx.g1, plain.g1
+    else:
+        pts = [host.g2.scalar_mul(host.g2_gen, 5 * i + 2) for i in range(n)]
+        pts[4] = None
+        P, curve, pcurve = ctx.g2_to_dev(pts), ctx.g2, plain.g2
+    if shared:
+        bits = ctx.scalar_bits(rng.randrange(host.r), nbits)
+    else:
+        ks = [0, 1, host.r - 1] + [rng.randrange(host.r) for _ in range(n - 3)]
+        bits = ctx.scalars_to_bits(ks, nbits)
+    before = FusedLadder.launches[group]
+    got = tree_leaves(curve.scalar_mul_bits(P, bits))
+    assert FusedLadder.launches[group] == before + 1
+    want = tree_leaves(pcurve.scalar_mul_bits(P, bits))
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
+def test_fused_gtexp_kernel_equals_plain(cuda_device):
+    ctx = dev_ctx("bls12_toy", device=cuda_device)
+    plain = dev_ctx("bls12_toy", device=cuda_device, plain=True)
+    host = ctx.host
+    from ripp_tpu_torch.host import pairing as hp
+
+    e = hp.pairing(host, host.g1_gen, host.g2_gen)
+    rng = random.Random(3)
+    gs = [hp.gt_exp(host, e, rng.randrange(1, host.r)) for _ in range(5)]
+    es = [0, 1, host.r - 1, rng.randrange(host.r), rng.randrange(host.r)]
+    before = FusedGtExp.launches
+    got = dev_pairing(ctx).gt_exp_batch(gs, es)
+    assert FusedGtExp.launches == before + 1
+    assert got == dev_pairing(plain).gt_exp_batch(gs, es)
+    assert got == [hp.gt_exp(host, g, x) for g, x in zip(gs, es)]
+
+
+def test_fr_products_use_the_fr_library(cuda_device):
+    """The Fr field's products (fold, hadamard, de-Montgomery by a
+    broadcast plain 1) launch the Montgomery kernel built for r."""
+    ctx = dev_ctx("bls12_381", device=cuda_device)
+    plain = dev_ctx("bls12_381", device=cuda_device, plain=True)
+    spec = ctx.t.spec_fr
+    a, b = _rand(spec, 300, 4, cuda_device), _rand(spec, 300, 5, cuda_device)
+    before = fp_cuda.launches
+    assert torch.equal(ctx.t.fr.mul(a, b), plain.t.fr.mul(a, b))
+    got = ctx.fr_limbs_to_bits(a)
+    assert fp_cuda.launches == before + 2
+    assert torch.equal(got, plain.fr_limbs_to_bits(a))

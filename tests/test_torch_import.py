@@ -24,6 +24,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "ripp_tpu" or m.startswith("ripp_tpu."))
 print("MODULES", len(names))
+print("NAMES", " ".join(names))
 print("BAD", bad)
 """
 
@@ -34,8 +35,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    assert int(lines["MODULES"]) >= 18
+    assert int(lines["MODULES"]) >= 26
     assert lines["BAD"] == "[]"
+    # the SIPP slice's modules are among them
+    names = set(lines["NAMES"].split())
+    for mod in ("utils.chacha", "utils.fiat_shamir", "utils.serialize",
+                "ops.curve_fused", "ops.msm", "models.vectors",
+                "models.sipp"):
+        assert "ripp_tpu_torch." + mod in names
 
 
 def test_chip_smoke_fails_without_a_card():
