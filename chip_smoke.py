@@ -24,7 +24,10 @@ and no result line):
      then each kernel's wrapper is held against its plain PyTorch version
      on the card at every one of those shapes, same inputs (numpy from a
      seed, or the main path's own points), exact equality of every limb
-     (integer arithmetic: the tolerance is zero); then timed. The plain
+     (integer arithmetic: the tolerance is zero); then timed. The kernels
+     held so: the Montgomery product and the add / sub / neg helpers (both
+     fields), the program executor, the fused Miller loop, the fused
+     ladder (G1 and G2) and the fused GT exponentiation. The plain
      versions of the Miller loop, the ladder and the GT exponentiation
      work element by element, so each runs once over all of a kernel's
      shapes concatenated (a shared scalar repeated for each element) and
@@ -40,11 +43,13 @@ and no result line):
      with r from the seed: product_of_pairings_with_coeffs must equal
      e(G1, G2)^(sum r_i*a_i*b_i mod r), verify(prove(...)) must be True,
      a tampered proof and a wrong value False. Launch counts are set to 0
-     before each path and read after. Only then are the per-phase times
-     taken and printed (min of 3, host clock with a synchronise inside,
-     fresh input buffers), and the product tree and final exponentiation
-     are timed a second way (Fp12 products through the stacked tower
-     instead of the program executor) for comparison.
+     before each path and read after, and every kernel the path runs must
+     have launched. Only then are the per-phase times taken and printed
+     (min of 3, host clock with a synchronise inside, fresh input
+     buffers): SIPP's steps are timed inside sipp.prove / sipp.verify
+     through their `step` argument. The product tree and final
+     exponentiation are also timed a second way (Fp12 products through the
+     stacked tower instead of the program executor) for comparison.
 
 Output: JSON objects, one a line; then the card's name and power limit as
 nvidia-smi prints them; then the {"kernels": [...]} line; the last line
@@ -168,18 +173,25 @@ class ShapeCensus:
         from ripp_tpu_torch.ops.kexec import ProgramKernel
         from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 
-        self.fp_mul, self.kexec, self.miller = set(), set(), set()
-        self.ladder, self.gtexp = set(), set()
-        self._saved = (fp_cuda.fp_mul, ProgramKernel._launch,
-                       FusedMiller._launch, FusedLadder._launch,
-                       FusedGtExp._launch)
-        fp_mul, k_launch, m_launch, l_launch, g_launch = self._saved
+        self.fp_mul, self.fp_cheap, self.kexec = set(), set(), set()
+        self.miller, self.ladder, self.gtexp = set(), set(), set()
+        self._saved = (fp_cuda.fp_mul, fp_cuda.fp_cheap,
+                       ProgramKernel._launch, FusedMiller._launch,
+                       FusedLadder._launch, FusedGtExp._launch)
+        (fp_mul, fp_cheap, k_launch, m_launch, l_launch,
+         g_launch) = self._saved
+
+        def batch_of(a, b):
+            shape = torch.broadcast_shapes(a.shape, b.shape)
+            return int(np.prod(shape[:-1], dtype=np.int64))
 
         def seen_fp_mul(spec, a, b):
-            shape = torch.broadcast_shapes(a.shape, b.shape)
-            self.fp_mul.add(
-                (spec.name, int(np.prod(shape[:-1], dtype=np.int64))))
+            self.fp_mul.add((spec.name, batch_of(a, b)))
             return fp_mul(spec, a, b)
+
+        def seen_fp_cheap(spec, op, a, b):
+            self.fp_cheap.add((spec.name, op, batch_of(a, b)))
+            return fp_cheap(spec, op, a, b)
 
         def seen_kexec(kern, inputs, masks, bshape):
             self.kexec.add((kern.sched.name,
@@ -201,6 +213,7 @@ class ShapeCensus:
             return g_launch(fg, leaves, bits)
 
         fp_cuda.fp_mul = seen_fp_mul
+        fp_cuda.fp_cheap = seen_fp_cheap
         ProgramKernel._launch = seen_kexec
         FusedMiller._launch = seen_miller
         FusedLadder._launch = seen_ladder
@@ -213,8 +226,9 @@ class ShapeCensus:
         from ripp_tpu_torch.ops.kexec import ProgramKernel
         from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 
-        (fp_cuda.fp_mul, ProgramKernel._launch, FusedMiller._launch,
-         FusedLadder._launch, FusedGtExp._launch) = self._saved
+        (fp_cuda.fp_mul, fp_cuda.fp_cheap, ProgramKernel._launch,
+         FusedMiller._launch, FusedLadder._launch,
+         FusedGtExp._launch) = self._saved
         return False
 
 
@@ -304,6 +318,80 @@ def check_fp_mul(ctx, plain_ctx, batches, n_rate):
         "fields": fields,
         "elements_per_s": n_rate / (ms_rate * 1e-3),
         "elements_per_s_at": n_rate,
+    }
+
+
+def check_fp_cheap(ctx, plain_ctx, shapes):
+    """The add / sub / neg kernel against the plain ops (plain_add /
+    plain_sub / plain_neg through a plain field) at every (field, op,
+    batch) of `shapes` (those the main paths give it), with the edge
+    operands, for the base field and the scalar field; each op timed at
+    the largest batch of its field."""
+    from ripp_tpu_torch.ops import fp_cuda
+    from ripp_tpu_torch.ops.fp import limbs_tensor
+
+    def plain(pfp, op, a, b):
+        return pfp.neg(a) if op == "neg" else getattr(pfp, op)(a, b)
+
+    rng = np.random.default_rng(SEED + 6)
+    timed = []
+    for fp, pfp in ((ctx.t.fp, plain_ctx.t.fp), (ctx.t.fr, plain_ctx.t.fr)):
+        spec = fp.spec
+        mine = sorted((op, n) for f, op, n in shapes if f == spec.name)
+        if not mine:
+            continue
+        p = spec.p
+        ev = [0, 1, p - 1, spec.r % p]
+        edge = limbs_tensor(spec.to_mont_limbs(ev), ctx.device)
+        ea, eb = edge.repeat_interleave(4, dim=0), edge.repeat(4, 1)
+        exact = {"add": [(x + y) % p for x in ev for y in ev],
+                 "sub": [(x - y) % p for x in ev for y in ev],
+                 "neg": [-x % p for x in ev for _ in ev]}
+        for op in sorted({op for op, _ in mine}):
+            got = fp_cuda.fp_cheap(spec, op, ea, eb)
+            if (spec.from_mont_limbs(got) != exact[op]
+                    or max_abs_err([got], [plain(pfp, op, ea, eb)])):
+                raise AssertionError(
+                    f"fp_cheap[{spec.name}, {op}] edge operands differ")
+        for op, n in mine:
+            a = random_limbs(rng, spec, n, ctx.device)
+            b = random_limbs(rng, spec, n, ctx.device)
+            k = min(n, 16)
+            a[:k], b[:k] = ea[:k], eb[:k]
+            err = max_abs_err([fp_cuda.fp_cheap(spec, op, a, b)],
+                              [plain(pfp, op, a, b)])
+            if err:
+                raise AssertionError(
+                    f"fp_cheap[{spec.name}, {op}] differs from its plain "
+                    f"version at batch {n}: {err}")
+        n_time = max(n for _, n in mine)
+        ta = random_limbs(rng, spec, n_time, ctx.device)
+        tb = random_limbs(rng, spec, n_time, ctx.device)
+        nw = spec.nl // 2
+        for op in sorted({op for op, _ in mine}):
+            ms = time_ms(lambda: fp_cuda.fp_cheap(spec, op, ta, tb), reps=20)
+            plain_ms = time_ms(lambda: plain(pfp, op, ta, tb), reps=5)
+            n_in = 1 if op == "neg" else 2
+            bms, by = bound((n_in + 1) * 4 * spec.nl * n_time,
+                            n_time * 2 * nw)
+            timed.append({"field": spec.name, "op": op, "batch": n_time,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                          "bound_by": by})
+    # the row's own figures: an add at the largest base-field batch
+    main = next(t for t in timed
+                if t["field"] == ctx.t.spec_fp.name and t["op"] == "add")
+    return {
+        "name": "fp_cheap", "route": "cuda",
+        "source": "ripp_tpu_torch/csrc/fp_mul.cu",
+        "replaces": "ripp_tpu/ops/fp.py:248",
+        "note": "DevFp.add / sub / neg there are XLA ops, no pallas_call",
+        "equal": True, "max_abs_err": 0,
+        "shape": [main["batch"], ctx.t.spec_fp.nl], "op": "add",
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "checked_shapes": [list(x) for x in sorted(shapes)],
+        "timed": timed,
     }
 
 
@@ -541,8 +629,12 @@ def check_gtexp(ctx, plain_dp, dp, shapes):
 # phases 3 and 4: the main paths
 # ---------------------------------------------------------------------------
 
-KERNELS = ("fp_mul", "kexec", "fused_miller", "fused_ladder_g1",
-           "fused_ladder_g2", "fused_gtexp")
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "multi_pairing": ("fp_mul", "fp_cheap", "kexec", "fused_miller"),
+    "sipp": ("fp_mul", "fp_cheap", "kexec", "fused_miller",
+             "fused_ladder_g1", "fused_ladder_g2", "fused_gtexp"),
+}
 
 
 def reset_counts():
@@ -570,7 +662,7 @@ def read_counts():
             "fused_ladder_g1": FusedLadder.launches["g1"],
             "fused_ladder_g2": FusedLadder.launches["g2"],
             "fused_gtexp": FusedGtExp.launches,
-            "fp_cheap_helpers": fp_cuda.cheap_launches}
+            "fp_cheap": fp_cuda.cheap_launches}
 
 
 def main_checked(ctx, dp):
@@ -782,102 +874,76 @@ def sipp_full(ctx, fixtures, n):
     return counts
 
 
-def sipp_times(ctx, A, B, r, value, proof):
-    """Min of 3 on the host clock of prove and verify as a whole, and of
-    each of their steps, run one by one as the two functions run them
-    (the stepwise prover must give the same proof). One line a step."""
-    from ripp_tpu_torch.host import pairing as hp
-    from ripp_tpu_torch.models import sipp
-    from ripp_tpu_torch.models.vectors import (
-        FrVec, PointVec, challenge_product_vec)
-    from ripp_tpu_torch.ops.pairing import dev_pairing
-    from ripp_tpu_torch.utils.fiat_shamir import FiatShamirRng
-    from ripp_tpu_torch.utils.serialize import CurveSerializer
+class StepTimer:
+    """The `step` argument of sipp.prove / sipp.verify: runs each step
+    between two synchronises and notes its host-clock time, in order."""
 
-    host = ctx.host
-    n = len(A)
-    s = CurveSerializer(host)
-    steps = {}
+    def __init__(self):
+        self.events = []
 
-    def t(name, fn):
+    def __call__(self, name, fn):
         ms, out = host_ms(fn)
-        steps.setdefault(name, [0.0] * 3)[rep] += ms
-        return ms, out
+        self.events.append((name, ms))
+        return out
 
-    per_round = []
-    for rep in range(3):
-        # --- prove, step by step (models/sipp.py prove, prove_rounds)
-        _, seed = t("instance_seed", lambda: sipp._instance_seed(
-            ctx, A, B, r, value))
-        rng = FiatShamirRng(seed)
-        _, (a, b, rv) = t("to_device", lambda: (
-            PointVec.from_host(ctx, "g1", A), PointVec.from_host(ctx, "g2", B),
-            FrVec.from_ints(ctx, r)))
-        _, a = t("rescale", lambda: a.hadamard_scale(rv))
-        elems, rounds = [], []
-        while len(a) != 1:
-            a_l, a_r, b_l, b_r = a.lo(), a.hi(), b.lo(), b.hi()
-            pm, (z_l, z_r) = t("round_pairings", lambda: (
-                sipp.product_of_pairings(ctx, a_r, b_l),
-                sipp.product_of_pairings(ctx, a_l, b_r)))
-            elems.append((z_l, z_r))
-            rng.absorb(s.gt(z_l) + s.gt(z_r))
-            x = rng.next_u128()
-            x_inv = pow(x, -1, host.r)
-            f1, a = t("fold_g1", lambda: a_r.fold(a_l, x))
-            f2, b = t("fold_g2", lambda: b_r.fold(b_l, x_inv))
-            rounds.append({"n": len(a_l), "pairings_ms": pm,
-                           "fold_g1_ms": f1, "fold_g2_ms": f2})
-        if elems != proof.gt_elems:
-            raise AssertionError("the stepwise prover gave another proof")
-        per_round.append(rounds)
-        # --- verify, step by step (models/sipp.py verify)
-        rng = FiatShamirRng(sipp._instance_seed(ctx, A, B, r, value))
-        x_s = []
-        for z_l, z_r in proof.gt_elems:
-            rng.absorb(s.gt(z_l) + s.gt(z_r))
-            x_s.append(rng.next_u128())
-        x_invs = [pow(x, -1, host.r) for x in x_s]
-        gts = [z for pair in proof.gt_elems for z in pair]
-        exps = [e for x, xi in zip(x_s, x_invs) for e in (x, xi)]
-        _, parts = t("gt_exp_batch", lambda: dev_pairing(ctx).gt_exp_batch(
-            gts, exps))
-        z_prime = value
-        for p in parts:
-            z_prime = hp.gt_mul(host, z_prime, p)
-        L = len(x_s)
+    def totals(self):
+        out = {}
+        for name, ms in self.events:
+            out[name] = out.get(name, 0.0) + ms
+        return out
 
-        def msb(i, j):
-            return (i >> (L - 1 - j)) & 1
+    def rounds(self):
+        """Per round of prove_rounds: its size and step times."""
+        rows = []
+        for name, ms in self.events:
+            if name == "round_pairings":
+                rows.append({"pairings_ms": ms})
+            elif name in ("fold_g1", "fold_g2"):
+                rows[-1][name + "_ms"] = ms
+        return rows
 
-        _, (ss, s_invs) = t("challenge_products", lambda: (
-            challenge_product_vec(ctx, x_s, n, msb).hadamard(
-                FrVec.from_ints(ctx, r)),
-            challenge_product_vec(ctx, x_invs, n, msb)))
-        _, (av, bv) = t("to_device_verify", lambda: (
-            PointVec.from_host(ctx, "g1", A),
-            PointVec.from_host(ctx, "g2", B)))
-        _, a_p = t("msm_g1", lambda: av.msm(ss))
-        _, b_p = t("msm_g2", lambda: bv.msm(s_invs))
-        _, ok = t("host_pairing", lambda: hp.pairing(host, a_p, b_p) == z_prime)
-        if not ok:
-            raise AssertionError("the stepwise verifier rejected the proof")
-    for name, runs in steps.items():
-        emit({"phase": "sipp_step_times", "n": n, "step": name,
-              "ms": min(runs), "runs": runs,
-              "timing": "host clock around synchronised calls, min of 3"})
-    best = min(range(3), key=lambda k: sum(x["pairings_ms"]
-                                           for x in per_round[k]))
-    emit({"phase": "sipp_round_times", "n": n, "rounds": per_round[best],
-          "timing": "host clock, the run of 3 with the least pairing time"})
+
+def sipp_times(ctx, A, B, r, value, proof):
+    """Min of 3 on the host clock of prove and verify as a whole, then of
+    each of their steps, timed inside the two functions by a StepTimer
+    (which synchronises around every step, so the totals are taken
+    without it). One line a step."""
+    from ripp_tpu_torch.models import sipp
+
+    n = len(A)
     totals = {"prove_ms": [], "verify_ms": []}
     for _ in range(3):
         ms, pf = host_ms(lambda: sipp.prove(ctx, A, B, r, value))
         totals["prove_ms"].append(ms)
         ms, ok = host_ms(lambda: sipp.verify(ctx, A, B, r, value, pf))
         totals["verify_ms"].append(ms)
-        if not ok:
-            raise AssertionError("verify rejected a timed proof")
+        if pf.gt_elems != proof.gt_elems or not ok:
+            raise AssertionError("a timed prove / verify gave another result")
+    steps = {"prove": [], "verify": []}
+    rounds = []
+    for _ in range(3):
+        tp, tv = StepTimer(), StepTimer()
+        pf = sipp.prove(ctx, A, B, r, value, step=tp)
+        ok = sipp.verify(ctx, A, B, r, value, pf, step=tv)
+        if pf.gt_elems != proof.gt_elems or not ok:
+            raise AssertionError("a stepwise prove / verify gave another "
+                                 "result")
+        steps["prove"].append(tp.totals())
+        steps["verify"].append(tv.totals())
+        rounds.append(tp.rounds())
+    for fn, runs in steps.items():
+        for name in runs[0]:
+            per_run = [run[name] for run in runs]
+            emit({"phase": "sipp_step_times", "n": n, "function": fn,
+                  "step": name, "ms": min(per_run), "runs": per_run,
+                  "timing": "host clock around synchronised steps, min of 3"})
+    best = min(rounds, key=lambda rs: sum(x["pairings_ms"] for x in rs))
+    size = n
+    for row in best:
+        size //= 2
+        row["n"] = size
+    emit({"phase": "sipp_round_times", "n": n, "rounds": best,
+          "timing": "host clock, the run of 3 with the least pairing time"})
     emit({"phase": "sipp_times", "n": n,
           "prove_ms": min(totals["prove_ms"]),
           "verify_ms": min(totals["verify_ms"]), "runs": totals,
@@ -953,6 +1019,7 @@ def main():
     emit({"phase": "main_path_shapes", "sizes": list(sizes),
           "sipp_sizes": sipp_sizes,
           "fp_mul_batches": sorted(seen.fp_mul),
+          "fp_cheap_shapes": sorted(seen.fp_cheap),
           "kexec_batches": sorted(seen.kexec),
           "fused_miller_batches": sorted(seen.miller),
           "fused_ladder_shapes": [
@@ -965,6 +1032,7 @@ def main():
     affine = (g1a[0], g1a[1], g2a[0], g2a[1])
     rows = [check_fp_mul(ctx, plain_ctx, seen.fp_mul,
                          1 << (12 if args.quick else 20)),
+            check_fp_cheap(ctx, plain_ctx, seen.fp_cheap),
             check_kexec(ctx, plain_ctx, dp, seen.kexec,
                         64 if args.quick else 1024),
             check_miller(ctx, dp, plain_dp, seen.miller, affine),
@@ -986,9 +1054,8 @@ def main():
         name = rw["name"]
         rw["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         rw["launches"] = by_path["sipp"][name]
-        needs = ("sipp", "multi_pairing") if name in KERNELS[:3] else (
-            "sipp",)
-        for p in needs:
+    for p, names in PATH_KERNELS.items():
+        for name in names:
             if by_path[p][name] < 1:
                 raise AssertionError(
                     f"the {p} path never launched kernel {name}")

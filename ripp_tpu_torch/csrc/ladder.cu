@@ -12,9 +12,11 @@
 //      outputs to registers 0..3d-1);
 //   2. the addition table (RCB15 complete addition of the base point);
 //   3. on a set bit, the copy table moves the sum to registers 0..3d-1.
-// The sum is computed on every bit and kept or dropped, so a warp never
-// diverges over the tables and the output is bit-identical to the plain
-// loop (ops/curve.py _scalar_mul_bits_impl).
+// The sum is computed on every bit and kept or dropped, so the doubling
+// and addition tables run in step across a warp; only the short copy
+// table (3d moves) runs under a branch on the element's bit, where the
+// threads of a warp diverge when the bits differ per element. The output
+// is bit-identical to the plain loop (ops/curve.py _scalar_mul_bits_impl).
 //
 // Input [3d][batch][NL] int32 (public layout), output the same.
 // bits: uint8 0/1, bit i of element t at bits[i * bit_step + t * elem_step]:

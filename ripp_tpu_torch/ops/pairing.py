@@ -483,20 +483,12 @@ class DevPairing:
         """Batched GT exponentiation: host GT list [k], host int exponents
         [k] -> host GT list. MSB-first square and multiply over all
         r.bit_length() bits of every exponent (reduced mod r)."""
-        import numpy as np
-
         host = self.ctx.host
-        k = len(gs)
-        if k == 0:
+        if len(gs) == 0:
             return []
-        nbits = host.r.bit_length()
-        bits = np.zeros((k, nbits), dtype=np.uint8)
-        for i, e in enumerate(es):
-            e = e % host.r
-            for j in range(nbits):
-                bits[i, j] = (e >> (nbits - 1 - j)) & 1
+        bits = self.ctx.scalars_to_bits([e % host.r for e in es],
+                                        host.r.bit_length())
         f = self.ctx.t.fp12_to_dev(list(gs))
-        bits = torch.from_numpy(bits).to(self.ctx.device)
         return self.ctx.t.fp12_from_dev(self.gt_exp_tree(f, bits))
 
     def gt_exp_tree(self, f, bits):

@@ -113,6 +113,29 @@ def test_verify_rejects_wrong_value(instance):
     assert not sipp.verify(ctx, A, B, r, wrong, proof)
 
 
+def test_step_callback_runs_every_step_and_changes_nothing(instance):
+    """prove / verify hand each step to `step(name, fn)` in order, and the
+    proof and the verdict are the same as without it."""
+    ctx, A, B, r, value, proof = instance
+    seen = {"prove": [], "verify": []}
+
+    def recorder(fn_name):
+        def step(name, fn):
+            seen[fn_name].append(name)
+            return fn()
+        return step
+
+    got = sipp.prove(ctx, A, B, r, value, step=recorder("prove"))
+    assert got.gt_elems == proof.gt_elems
+    assert sipp.verify(ctx, A, B, r, value, got, step=recorder("verify"))
+    assert seen["prove"] == (["instance_seed", "to_device", "rescale"]
+                             + ["round_pairings", "fold_g1", "fold_g2"] * 3)
+    assert seen["verify"] == [
+        "instance_seed", "challenges", "gt_exp_batch", "gt_combine",
+        "challenge_products", "to_device", "msm_g1", "msm_g2",
+        "host_pairing"]
+
+
 def _fr(ctx, n, seed):
     rng = SeededRng(seed)
     return [rand_field(rng, ctx.host.r) for _ in range(n)]
