@@ -3,7 +3,7 @@
     python3 chip_smoke.py            # the full run (needs one card)
     python3 chip_smoke.py --quick    # build + checks at small sizes only
 
-Two main paths, both on BLS12-381 at full width (Fp 381 bits, NL = 24;
+Three main paths, all on BLS12-381 at full width (Fp 381 bits, NL = 24;
 Fr 255 bits, NL = 16):
   * the inner pairing product Z = prod e(A_i, B_i): `dev_ctx` ->
     `g1/g2_to_dev` -> `DevPairing.multi_pairing` (normalize, fused Miller
@@ -12,42 +12,60 @@ Fr 255 bits, NL = 16):
     rescale, then log2(n) rounds of two pairing products and a G1 and a
     G2 fold) and `models.sipp.verify` (one batched GT exponentiation, two
     challenge-product vectors over Fr, two Pippenger MSMs, one host
-    pairing).
+    pairing);
+  * TIPA over TIPP (the argument a Groth16 aggregator runs on the proofs'
+    A and B): `models.tipa.setup_srs` (fixed-base tables), then
+    `tipa.prove(_with_srs_shift)` (log2(n) GIPA rounds of six pairing
+    products and four folds, then two KZG openings as MSMs) and
+    `tipa.verify(_with_srs_shift)` (one batched GT exponentiation, then
+    one PairingCheck: one multi_pairing), under both Montgomery
+    multipliers: `dev_ctx(..., fp_kernel="cios16")` (K1) and
+    `fp_kernel="hybrid8"` (K1').
 
 Phases (a failure in any of them ends the run with a non-zero exit code
 and no result line):
   1. build: compile the CUDA libraries from ripp_tpu_torch/csrc with nvcc,
      one for Fp and one for Fr.
-  2. kernels: both paths are driven once at their sizes (multi_pairing at
-     each size; SIPP prove and verify at n = 8 and at the full n) while
-     the batch (and bit shape) every kernel wrapper is given is noted;
-     then each kernel's wrapper is held against its plain PyTorch version
-     on the card at every one of those shapes, same inputs (numpy from a
-     seed, or the main path's own points), exact equality of every limb
-     (integer arithmetic: the tolerance is zero); then timed. The kernels
-     held so: the Montgomery product and the add / sub / neg helpers (both
-     fields), the program executor, the fused Miller loop, the fused
-     ladder (G1 and G2) and the fused GT exponentiation. The plain
-     versions of the Miller loop, the ladder and the GT exponentiation
-     work element by element, so each runs once over all of a kernel's
-     shapes concatenated (a shared scalar repeated for each element) and
-     each launch is compared with its slice.
+  2. kernels: the paths are driven once at their sizes (multi_pairing at
+     each size; SIPP prove and verify at n = 8 and at the full n; TIPP
+     with an SRS shift at n = 8 and at the full n under cios16, and
+     without one under hybrid8) while the batch (and bit shape) every
+     kernel wrapper is given is noted; then each kernel's wrapper is held
+     against its plain PyTorch version on the card at every one of those
+     shapes, same inputs (numpy from a seed, or the main path's own
+     points), exact equality of every limb (integer arithmetic: the
+     tolerance is zero); then timed. The kernels held so: the Montgomery
+     product (CIOS and hybrid8, which is also held against CIOS) and the
+     add / sub / neg helpers (both fields), the program executor, the
+     fused Miller loop, the fused ladder (G1 and G2) and the fused GT
+     exponentiation. The plain versions of the Miller loop, the ladder and
+     the GT exponentiation work element by element, so each runs once
+     over all of a kernel's shapes concatenated (a shared scalar repeated
+     for each element) and each launch is compared with its slice.
   3. main paths, checked: multi_pairing at n = 8 with two identity pairs
      against the host model (Python bigints); SIPP at n = 8 round by
      round: every (z_l, z_r) against the host model's pairing products
      on the host-folded vectors, verify accepts, and rejects a proof with
-     one GT element changed and a wrong claimed value.
+     one GT element changed and a wrong claimed value; TIPP at n = 8,
+     without and with an SRS shift: round 1's commitments against the
+     host model's pairings, the prover's challenges against the
+     verifier's, verify accepts, and rejects a proof with one GT element
+     changed and a wrong commitment (and a wrong shift).
   4. main paths, full size: multi_pairing at n = 256, 2048, 4096 with
      A_i = a_i*G1, B_i = b_i*G2; the result must equal
      e(G1, G2)^(sum a_i*b_i mod r). SIPP at n = 4096 on the same points
      with r from the seed: product_of_pairings_with_coeffs must equal
      e(G1, G2)^(sum r_i*a_i*b_i mod r), verify(prove(...)) must be True,
-     a tampered proof and a wrong value False. Launch counts are set to 0
-     before each path and read after, and every kernel the path runs must
-     have launched. Only then are the per-phase times taken and printed
-     (min of 3, host clock with a synchronise inside, fresh input
-     buffers): SIPP's steps are timed inside sipp.prove / sipp.verify
-     through their `step` argument. The product tree and final
+     a tampered proof and a wrong value False. TIPP at n = 1024 on the
+     first 1024 points: the checks of phase 3 but round 1's, with and
+     without a shift; then the same instance under hybrid8, whose proof
+     must equal the cios16 proof byte for byte and whose verify must
+     accept. Launch counts are set to 0 before each path and read after,
+     and every kernel the path runs must have launched (on the hybrid8
+     run K1 itself must not). Only then are the per-phase times taken and
+     printed (min of 3, host clock with a synchronise inside, fresh input
+     buffers): SIPP's and TIPP's steps are timed inside their prove and
+     verify through the `step` argument. The product tree and final
      exponentiation are also timed a second way (Fp12 products through the
      stacked tower instead of the program executor) for comparison.
 
@@ -175,11 +193,13 @@ class ShapeCensus:
 
         self.fp_mul, self.fp_cheap, self.kexec = set(), set(), set()
         self.miller, self.ladder, self.gtexp = set(), set(), set()
+        self.fp_mul_hybrid8 = set()
         self._saved = (fp_cuda.fp_mul, fp_cuda.fp_cheap,
                        ProgramKernel._launch, FusedMiller._launch,
-                       FusedLadder._launch, FusedGtExp._launch)
+                       FusedLadder._launch, FusedGtExp._launch,
+                       fp_cuda.fp_mul_hybrid8)
         (fp_mul, fp_cheap, k_launch, m_launch, l_launch,
-         g_launch) = self._saved
+         g_launch, fp_mul_h8) = self._saved
 
         def batch_of(a, b):
             shape = torch.broadcast_shapes(a.shape, b.shape)
@@ -188,6 +208,10 @@ class ShapeCensus:
         def seen_fp_mul(spec, a, b):
             self.fp_mul.add((spec.name, batch_of(a, b)))
             return fp_mul(spec, a, b)
+
+        def seen_fp_mul_h8(spec, a, b):
+            self.fp_mul_hybrid8.add((spec.name, batch_of(a, b)))
+            return fp_mul_h8(spec, a, b)
 
         def seen_fp_cheap(spec, op, a, b):
             self.fp_cheap.add((spec.name, op, batch_of(a, b)))
@@ -213,6 +237,7 @@ class ShapeCensus:
             return g_launch(fg, leaves, bits)
 
         fp_cuda.fp_mul = seen_fp_mul
+        fp_cuda.fp_mul_hybrid8 = seen_fp_mul_h8
         fp_cuda.fp_cheap = seen_fp_cheap
         ProgramKernel._launch = seen_kexec
         FusedMiller._launch = seen_miller
@@ -228,13 +253,17 @@ class ShapeCensus:
 
         (fp_cuda.fp_mul, fp_cuda.fp_cheap, ProgramKernel._launch,
          FusedMiller._launch, FusedLadder._launch,
-         FusedGtExp._launch) = self._saved
+         FusedGtExp._launch, fp_cuda.fp_mul_hybrid8) = self._saved
         return False
 
 
-def main_path_shapes(ctx, dp, sizes, fixtures, sipp_sizes):
-    """Drive multi_pairing once at each size and SIPP prove + verify at
-    each SIPP size; return the shapes the kernels were given."""
+def main_path_shapes(ctx, hctx, dp, sizes, fixtures, sipp_sizes,
+                     tipp_sizes):
+    """Drive multi_pairing once at each size, SIPP prove + verify at each
+    SIPP size, and TIPP setup + prove + verify at each TIPP size (with an
+    SRS shift in the cios16 context `ctx`, which runs every launch of the
+    unshifted path too, and without one in the hybrid8 context `hctx`);
+    return the shapes the kernels were given."""
     from ripp_tpu_torch.models import sipp
 
     _, _, A, B, r = fixtures
@@ -249,76 +278,95 @@ def main_path_shapes(ctx, dp, sizes, fixtures, sipp_sizes):
             proof = sipp.prove(ctx, A[:n], B[:n], r[:n], value)
             if not sipp.verify(ctx, A[:n], B[:n], r[:n], value, proof):
                 raise AssertionError(f"SIPP verify failed at n = {n}")
+        for n in tipp_sizes:
+            for c, r_shift in ((ctx, tipp_shift(ctx)), (hctx, 1)):
+                inst = tipp_instance(c, A[:n], B[:n], tipp_srs(c, n),
+                                     r_shift)
+                if not tipp_verify(inst, tipp_prove(inst)):
+                    raise AssertionError(
+                        f"TIPP verify failed at n = {n} ({c.fp_kernel})")
         sync()
     return seen
 
 
-def check_fp_mul(ctx, plain_ctx, batches, n_rate):
-    """fp_mul against mont_mul_limbs at every (field, batch) of `batches`
-    (those the main paths give it), with the edge operands, for the base
-    field and the scalar field; timed at the largest batch of each;
-    `n_rate` elements only for the elements-a-second figure."""
-    from ripp_tpu_torch.ops import fp_cuda
+def check_mont_mul(ctx, batches, n_rate, kernel, plain, name, replaces,
+                   seed, also=None):
+    """A Montgomery-multiply kernel against its plain version (and, where
+    `also` = (tag, other kernel) is given, against that kernel too) at
+    every (field, batch) of `batches` (those the main paths give it), with
+    the edge operands 0, 1, p-1, R mod p, also against bigints, for the
+    base field and the scalar field; timed (beside `also`) at the largest
+    batch of each, the bound counted as for the CIOS body; `n_rate`
+    elements only for the elements-a-second figures."""
     from ripp_tpu_torch.ops.fp import limbs_tensor
 
-    rng = np.random.default_rng(SEED)
+    others = [plain] + ([also[1]] if also else [])
+    rng = np.random.default_rng(seed)
     fields = {}
-    for name, fp, pfp in ((ctx.t.spec_fp.name, ctx.t.fp, plain_ctx.t.fp),
-                          (ctx.t.spec_fr.name, ctx.t.fr, plain_ctx.t.fr)):
-        spec = fp.spec
-        # edge operands 0, 1, p-1, R mod p, every pair of them
-        edge = limbs_tensor(spec.to_mont_limbs([0, 1, spec.p - 1, spec.r]),
-                            ctx.device)
-        ea = edge.repeat_interleave(4, dim=0)
-        eb = edge.repeat(4, 1)
-        got = fp.mul(ea, eb)
-        if max_abs_err([got], [pfp.mul(ea, eb)]):
-            raise AssertionError(f"fp_mul[{name}] edge products differ")
+    for spec in (ctx.t.spec_fp, ctx.t.spec_fr):
+        field = spec.name
         p = spec.p
         ev = [0, 1, p - 1, spec.r % p]
+        edge = limbs_tensor(spec.to_mont_limbs(ev), ctx.device)
+        ea, eb = edge.repeat_interleave(4, dim=0), edge.repeat(4, 1)
+        got = kernel(spec, ea, eb)
+        if max(max_abs_err([got], [f(spec, ea, eb)]) for f in others):
+            raise AssertionError(f"{name}[{field}] edge products differ "
+                                 "from the plain version")
         if spec.from_mont_limbs(got) != [x * y % p for x in ev for y in ev]:
-            raise AssertionError(f"fp_mul[{name}] edge products != bigints")
-        mine = sorted(b for f, b in batches if f == name)
+            raise AssertionError(f"{name}[{field}] edge products != bigints")
+        mine = sorted(b for f, b in batches if f == field)
+        if not mine:
+            raise AssertionError(f"the main paths gave {name} no {field} "
+                                 "products")
         for n in mine:
             a = random_limbs(rng, spec, n, ctx.device)
             b = random_limbs(rng, spec, n, ctx.device)
             # the edge operands ride in the first lanes where there is room
             k = min(n, 16)
             a[:k], b[:k] = ea[:k], eb[:k]
-            err = max_abs_err([fp.mul(a, b)], [pfp.mul(a, b)])
+            got = kernel(spec, a, b)
+            err = max(max_abs_err([got], [f(spec, a, b)]) for f in others)
             if err:
-                raise AssertionError(
-                    f"fp_mul[{name}] differs from its plain version at "
-                    f"batch {n}: {err}")
+                raise AssertionError(f"{name}[{field}] differs from its plain "
+                                     f"version at batch {n}: {err}")
         n_time = max(mine)
         ta = random_limbs(rng, spec, n_time, ctx.device)
         tb = random_limbs(rng, spec, n_time, ctx.device)
-        ms = time_ms(lambda: fp_cuda.fp_mul(spec, ta, tb), reps=20)
-        plain_ms = time_ms(lambda: fp_cuda.mont_mul_limbs(spec, ta, tb),
-                           reps=2, warm=1)
         nw = spec.nl // 2
         bms, by = bound(3 * 4 * spec.nl * n_time,
                         n_time * 2 * (2 * nw * nw + nw))
-        fields[name] = {"checked_batches": mine, "shape": [n_time, spec.nl],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                        "bound_by": by}
+        fields[field] = {
+            "checked_batches": mine, "shape": [n_time, spec.nl],
+            "ms": time_ms(lambda: kernel(spec, ta, tb), reps=20),
+            "plain_ms": time_ms(lambda: plain(spec, ta, tb), reps=2, warm=1),
+            "bound_ms": bms, "bound_by": by}
+        if also:
+            fields[field][f"{also[0]}_ms"] = time_ms(
+                lambda: also[1](spec, ta, tb), reps=20)
     spec = ctx.t.spec_fp
     ra = random_limbs(rng, spec, n_rate, ctx.device)
     rb = random_limbs(rng, spec, n_rate, ctx.device)
-    ms_rate = time_ms(lambda: fp_cuda.fp_mul(spec, ra, rb), reps=20)
     main = fields[spec.name]
-    return {
-        "name": "fp_mul", "route": "cuda",
-        "source": "ripp_tpu_torch/csrc/fp_mul.cu",
-        "replaces": "ripp_tpu/ops/fp_pallas.py:211",
+    row = {
+        "name": name, "route": "cuda",
+        "source": "ripp_tpu_torch/csrc/fp_mul.cu", "replaces": replaces,
         "equal": True, "max_abs_err": 0,
         "shape": main["shape"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
         "fields": fields,
-        "elements_per_s": n_rate / (ms_rate * 1e-3),
+        "elements_per_s": n_rate / (
+            time_ms(lambda: kernel(spec, ra, rb), reps=20) * 1e-3),
         "elements_per_s_at": n_rate,
     }
+    if also:
+        tag = also[0]
+        row[f"equal_to_{tag}"] = True
+        row[f"{tag}_ms"] = main[f"{tag}_ms"]
+        row[f"{tag}_elements_per_s"] = n_rate / (
+            time_ms(lambda: also[1](spec, ra, rb), reps=20) * 1e-3)
+    return row
 
 
 def check_fp_cheap(ctx, plain_ctx, shapes):
@@ -629,11 +677,16 @@ def check_gtexp(ctx, plain_dp, dp, shapes):
 # phases 3 and 4: the main paths
 # ---------------------------------------------------------------------------
 
-# the kernels each main path must launch
+# the kernels each main path must launch (K1 must not launch on the
+# hybrid8 run: checked in main)
 PATH_KERNELS = {
     "multi_pairing": ("fp_mul", "fp_cheap", "kexec", "fused_miller"),
     "sipp": ("fp_mul", "fp_cheap", "kexec", "fused_miller",
              "fused_ladder_g1", "fused_ladder_g2", "fused_gtexp"),
+    "tipp": ("fp_mul", "fp_cheap", "kexec", "fused_miller",
+             "fused_ladder_g1", "fused_ladder_g2", "fused_gtexp"),
+    "tipp_hybrid8": ("fp_mul_hybrid8", "fp_cheap", "kexec", "fused_miller",
+                     "fused_ladder_g1", "fused_ladder_g2", "fused_gtexp"),
 }
 
 
@@ -644,6 +697,7 @@ def reset_counts():
     from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 
     fp_cuda.launches = 0
+    fp_cuda.hybrid8_launches = 0
     fp_cuda.cheap_launches = 0
     ProgramKernel.launches = 0
     FusedMiller.launches = 0
@@ -657,7 +711,9 @@ def read_counts():
     from ripp_tpu_torch.ops.kexec import ProgramKernel
     from ripp_tpu_torch.ops.pairing_fused import FusedGtExp, FusedMiller
 
-    return {"fp_mul": fp_cuda.launches, "kexec": ProgramKernel.launches,
+    return {"fp_mul": fp_cuda.launches,
+            "fp_mul_hybrid8": fp_cuda.hybrid8_launches,
+            "kexec": ProgramKernel.launches,
             "fused_miller": FusedMiller.launches,
             "fused_ladder_g1": FusedLadder.launches["g1"],
             "fused_ladder_g2": FusedLadder.launches["g2"],
@@ -950,6 +1006,308 @@ def sipp_times(ctx, A, B, r, value, proof):
           "timing": "host clock around synchronised calls, min of 3"})
 
 
+# ---------------------------------------------------------------------------
+# TIPP: TIPA over the pairing inner product
+# ---------------------------------------------------------------------------
+
+def tipp_srs(ctx, n):
+    """The SRS for n from the seed (the same alpha and beta every time)."""
+    from ripp_tpu_torch.models import tipa
+    from ripp_tpu_torch.utils.fiat_shamir import SeededRng
+
+    return tipa.setup_srs(ctx, SeededRng(SEED), n)
+
+
+def tipp_shift(ctx):
+    """An SRS shift r != 1 from the seed."""
+    return random.Random(SEED + 8).randrange(2, ctx.host.r)
+
+
+def tipp_instance(ctx, A, B, srs, r_shift=1):
+    """TIPP on host points A (G1) and B (G2) with the keys of `srs`: with
+    a shift r != 1 the messages m_a are scaled by r^i and the keys ck_a by
+    r^-i, as an aggregator does (com_a stays as it was: checked); then the
+    three commitments."""
+    from types import SimpleNamespace
+
+    from ripp_tpu_torch.models.instances import tipp_config
+    from ripp_tpu_torch.models.vectors import FrVec, PointVec
+    from ripp_tpu_torch.utils.poly import structured_scalar_power
+
+    host = ctx.host
+    n = len(A)
+    cfg = tipp_config(ctx)
+    ck_a, ck_b = srs.get_commitment_keys()
+    ck_t = cfg.ipc.setup(None, 1)
+    m_a = PointVec.from_host(ctx, "g1", A)
+    m_b = PointVec.from_host(ctx, "g2", B)
+    com_a = cfg.lmc.commit(ck_a, m_a)
+    com_b = cfg.rmc.commit(ck_b, m_b)
+    if r_shift != 1:
+        r_inv = pow(r_shift, -1, host.r)
+        m_a = m_a.hadamard_scale(FrVec.from_ints(
+            ctx, structured_scalar_power(n, r_shift, host.r)))
+        ck_a = ck_a.hadamard_scale(FrVec.from_ints(
+            ctx, structured_scalar_power(n, r_inv, host.r)))
+        if cfg.lmc.commit(ck_a, m_a) != com_a:
+            raise AssertionError(f"TIPP(n={n}): the SRS shift changed com_a")
+    com_t = cfg.ipc.commit(ck_t, [cfg.ip.compute(m_a, m_b)])
+    return SimpleNamespace(ctx=ctx, cfg=cfg, srs=srs,
+                           v_srs=srs.get_verifier_key(), m_a=m_a, m_b=m_b,
+                           ck=(ck_a, ck_b, ck_t), com=(com_a, com_b, com_t),
+                           r_shift=r_shift)
+
+
+def tipp_prove(inst, step=None):
+    from ripp_tpu_torch.models import tipa
+
+    kw = {} if step is None else {"step": step}
+    return tipa.prove_with_srs_shift(inst.cfg, inst.srs, (inst.m_a, inst.m_b),
+                                     inst.ck, inst.r_shift, **kw)
+
+
+def tipp_verify(inst, proof, com=None, r_shift=None, step=None):
+    """verify_with_srs_shift with the PairingCheck's coefficients drawn
+    from a seeded generator."""
+    from ripp_tpu_torch.models import tipa
+
+    kw = {} if step is None else {"step": step}
+    return tipa.verify_with_srs_shift(
+        inst.cfg, inst.v_srs, inst.ck[2], com or inst.com, proof,
+        inst.r_shift if r_shift is None else r_shift,
+        rand=torch.Generator().manual_seed(SEED), **kw)
+
+
+class ChallengeLog:
+    """A `step` of tipa.prove that runs each step and keeps the prover's
+    round challenges c, in prove order."""
+
+    def __init__(self):
+        self.challenges = []
+
+    def __call__(self, name, fn):
+        out = fn()
+        if name == "challenge":
+            self.challenges.append(out[0])
+        return out
+
+
+def tipp_transcript_check(inst, proof, log):
+    """The prover's challenges are the ones the verifier replays."""
+    from ripp_tpu_torch.models import gipa
+
+    _, transcript = gipa.compute_recursive_challenges(
+        inst.cfg, inst.com, proof.gipa_proof)
+    if transcript != list(reversed(log.challenges)):
+        raise AssertionError("TIPP: the prover's challenges differ from "
+                             "the verifier's")
+
+
+def tipp_round1_check(inst, proof):
+    """Round 1's two commitments (com_a, com_b, com_t) against the host
+    model's pairing products on the split vectors (gipa.rs:207-232)."""
+    from ripp_tpu_torch.host import pairing as hp
+
+    host = inst.ctx.host
+    m_a, m_b = inst.m_a.to_host(), inst.m_b.to_host()
+    ck_a, ck_b = inst.ck[0].to_host(), inst.ck[1].to_host()
+    h = len(m_a) // 2
+
+    def mp(ps, qs):
+        return hp.multi_pairing(host, ps, qs)
+
+    want_1 = (mp(m_a[h:], ck_a[:h]), mp(ck_b[h:], m_b[:h]),
+              mp(m_a[h:], m_b[:h]))
+    want_2 = (mp(m_a[:h], ck_a[h:]), mp(ck_b[:h], m_b[h:]),
+              mp(m_a[:h], m_b[h:]))
+    com_1, com_2 = proof.gipa_proof.steps[-1]  # steps are stored reversed
+    for got, want in ((com_1, want_1), (com_2, want_2)):
+        if (got[0], got[1], got[2].items[0]) != want:
+            raise AssertionError("TIPP round 1 commitments != host model")
+
+
+def tipp_tampered(host, proof):
+    """The proof with one GT element changed (squared: still in GT)."""
+    from ripp_tpu_torch.models import gipa, tipa
+
+    steps = list(proof.gipa_proof.steps)
+    k = len(steps) // 2
+    (ca, cb, ct), com_2 = steps[k]
+    steps[k] = ((host.tower.fp12.mul(ca, ca), cb, ct), com_2)
+    return tipa.TIPAProof(
+        gipa_proof=gipa.GIPAProof(steps=steps,
+                                  r_base=proof.gipa_proof.r_base),
+        final_ck=proof.final_ck, final_ck_proof=proof.final_ck_proof)
+
+
+def tipp_verdicts(inst, proof):
+    """verify on the honest proof, a tampered one, a wrong commitment and
+    (when shifted) a wrong shift; raises unless only the honest one
+    passes."""
+    host = inst.ctx.host
+    com_a, com_b, com_t = inst.com
+    got = {
+        "honest": tipp_verify(inst, proof),
+        "tampered": tipp_verify(inst, tipp_tampered(host, proof)),
+        "wrong_commitment": tipp_verify(
+            inst, proof, com=(com_a, host.tower.fp12.mul(com_b, com_b),
+                              com_t)),
+    }
+    if inst.r_shift != 1:
+        got["wrong_shift"] = tipp_verify(inst, proof,
+                                         r_shift=inst.r_shift + 1)
+    want = {k: k == "honest" for k in got}
+    if got != want:
+        raise AssertionError(f"TIPP(n={len(inst.m_a)}, shifted="
+                             f"{inst.r_shift != 1}) verify: {got}")
+    return got
+
+
+def tipp_checked(ctx, fixtures, n=8):
+    """TIPP at n = 8 without and with an SRS shift: round 1 against the
+    host model, the prover's challenges against the verifier's, verify's
+    verdicts."""
+    _, _, A, B, _ = fixtures
+    srs = tipp_srs(ctx, n)
+    runs = []
+    for r_shift in (1, tipp_shift(ctx)):
+        inst = tipp_instance(ctx, A[:n], B[:n], srs, r_shift)
+        log = ChallengeLog()
+        proof = tipp_prove(inst, log)
+        tipp_round1_check(inst, proof)
+        tipp_transcript_check(inst, proof, log)
+        runs.append({"shifted": r_shift != 1,
+                     "rounds": len(proof.gipa_proof.steps),
+                     "verify": tipp_verdicts(inst, proof)})
+    emit({"phase": "tipp_checked", "n": n, "round1_equal_to_host_model": True,
+          "prover_challenges_equal_verifier": True, "runs": runs})
+
+
+def tipp_full(ctx, hctx, fixtures, n):
+    """TIPP at n: setup, then prove + verify under cios16 with the launch
+    counts set to 0 before and read after; the checks of tipp_checked but
+    round 1's, without and with a shift; then the same instance and seed
+    under hybrid8 (counted the same way), whose proof must equal the
+    cios16 proof byte for byte. Only then the times. Returns the counts
+    of the two runs."""
+    from ripp_tpu_torch.models import tipa
+
+    _, _, A, B, _ = fixtures
+    A, B = A[:n], B[:n]
+    setup_ms, srs = host_ms(lambda: tipp_srs(ctx, n))
+    inst = tipp_instance(ctx, A, B, srs)
+    sync()
+    reset_counts()
+    log = ChallengeLog()
+    proof = tipp_prove(inst, log)
+    ok = tipp_verify(inst, proof)
+    sync()
+    counts = read_counts()
+    if not ok:
+        raise AssertionError(f"TIPP(n={n}) verify rejected the honest proof")
+    tipp_transcript_check(inst, proof, log)
+    verdicts = tipp_verdicts(inst, proof)
+    shifted = tipp_instance(ctx, A, B, srs, tipp_shift(ctx))
+    slog = ChallengeLog()
+    sproof = tipp_prove(shifted, slog)
+    tipp_transcript_check(shifted, sproof, slog)
+    s_verdicts = tipp_verdicts(shifted, sproof)
+
+    h_setup_ms, hsrs = host_ms(lambda: tipp_srs(hctx, n))
+    hinst = tipp_instance(hctx, A, B, hsrs)
+    if hinst.com != inst.com:
+        raise AssertionError(f"TIPP(n={n}): hybrid8 commitments differ")
+    sync()
+    reset_counts()
+    hproof = tipp_prove(hinst)
+    h_ok = tipp_verify(hinst, hproof)
+    sync()
+    h_counts = read_counts()
+    proof_bytes = tipa.ser_proof(inst.cfg, proof)
+    if tipa.ser_proof(hinst.cfg, hproof) != proof_bytes:
+        raise AssertionError(f"TIPP(n={n}): the hybrid8 proof differs from "
+                             "the cios16 proof")
+    if not h_ok:
+        raise AssertionError(f"TIPP(n={n}) hybrid8 verify rejected")
+    emit({"phase": "tipp_full_checked", "n": n,
+          "rounds": len(proof.gipa_proof.steps),
+          "proof_bytes": len(proof_bytes),
+          "prover_challenges_equal_verifier": True,
+          "verify": verdicts, "verify_shifted": s_verdicts,
+          "hybrid8_proof_equal_to_cios16": True, "hybrid8_verify": h_ok,
+          "setup_ms": {"cios16": setup_ms, "hybrid8": h_setup_ms},
+          "launches": counts, "launches_hybrid8": h_counts})
+    tipp_times(inst, hinst, proof_bytes)
+    return counts, h_counts
+
+
+def tipp_times(inst, hinst, proof_bytes):
+    """Min of 3 on the host clock of prove and verify, each cios16 run
+    with a StepTimer inside (it synchronises around every step: a few
+    dozen synchronises against seconds of work), the hybrid8 instance
+    `hinst` in turns with it (cios16 first in runs 1 and 3, hybrid8 first
+    in run 2); one line a step, the rounds of the run with the least
+    commitment time, and the totals."""
+    from ripp_tpu_torch.models import tipa
+
+    n = len(inst.m_a)
+    totals = {"prove_ms": [], "verify_ms": [], "hybrid8_prove_ms": [],
+              "hybrid8_verify_ms": []}
+    steps = {"prove": [], "verify": []}
+    rounds = []
+
+    def stepped():
+        tp, tv = StepTimer(), StepTimer()
+        ms, pf = host_ms(lambda: tipp_prove(inst, tp))
+        totals["prove_ms"].append(ms)
+        ms, ok = host_ms(lambda: tipp_verify(inst, pf, step=tv))
+        totals["verify_ms"].append(ms)
+        if tipa.ser_proof(inst.cfg, pf) != proof_bytes or not ok:
+            raise AssertionError("a timed TIPP prove / verify gave another "
+                                 "result")
+        steps["prove"].append(tp.totals())
+        steps["verify"].append(tv.totals())
+        rows = []
+        for name, t in tp.events:
+            if name == "commitments":
+                rows.append({"n": n >> (len(rows) + 1)})
+            if name in ("commitments", "challenge", "folds"):
+                rows[-1][name + "_ms"] = t
+        rounds.append(rows)
+
+    def hybrid8():
+        ms, pf = host_ms(lambda: tipp_prove(hinst))
+        totals["hybrid8_prove_ms"].append(ms)
+        ms, ok = host_ms(lambda: tipp_verify(hinst, pf))
+        totals["hybrid8_verify_ms"].append(ms)
+        if tipa.ser_proof(hinst.cfg, pf) != proof_bytes or not ok:
+            raise AssertionError("a timed hybrid8 TIPP prove / verify gave "
+                                 "another result")
+
+    for order in ((stepped, hybrid8), (hybrid8, stepped),
+                  (stepped, hybrid8)):
+        for run in order:
+            run()
+    for fn, runs in steps.items():
+        for name in runs[0]:
+            per_run = [run[name] for run in runs]
+            emit({"phase": "tipp_step_times", "n": n, "function": fn,
+                  "step": name, "ms": min(per_run), "runs": per_run,
+                  "timing": "host clock around synchronised steps, min of 3"})
+    best = min(rounds, key=lambda rs: sum(x["commitments_ms"] for x in rs))
+    emit({"phase": "tipp_round_times", "n": n, "rounds": best,
+          "timing": "host clock, the run of 3 with the least commitment "
+                    "time"})
+    emit({"phase": "tipp_times", "n": n,
+          "prove_ms": min(totals["prove_ms"]),
+          "verify_ms": min(totals["verify_ms"]),
+          "hybrid8_prove_ms": min(totals["hybrid8_prove_ms"]),
+          "hybrid8_verify_ms": min(totals["hybrid8_verify_ms"]),
+          "runs": totals,
+          "timing": "host clock around synchronised calls, min of 3; "
+                    "cios16 with its StepTimer, hybrid8 without one"})
+
+
 def build_all(ctx, verbose):
     """Both libraries (Fp and Fr), built side by side."""
     from concurrent.futures import ThreadPoolExecutor
@@ -976,6 +1334,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
+    from ripp_tpu_torch.ops import fp_cuda
     from ripp_tpu_torch.ops.pairing import dev_pairing
     from ripp_tpu_torch.ops.points import dev_ctx
     from ripp_tpu_torch.utils import build
@@ -995,12 +1354,14 @@ def main():
             print(build.BUILD_LOG.get(key, ""), flush=True)
 
     plain_ctx = dev_ctx("bls12_381", plain=True)
+    hctx = dev_ctx("bls12_381", fp_kernel="hybrid8")
     dp = dev_pairing(ctx)
     plain_dp = dev_pairing(plain_ctx)
 
     # fixtures of the full-size runs, made once (host, native C group law)
     sizes = (8,) if args.quick else (256, 2048, 4096)
     sipp_n = 8 if args.quick else 4096
+    tipp_n = 8 if args.quick else 1024
     host = ctx.host
     rng = random.Random(SEED + 4)
     n_max = max(max(sizes), sipp_n)
@@ -1015,10 +1376,13 @@ def main():
 
     # phase 2: kernels, at the shapes the main paths give them
     sipp_sizes = sorted({8, sipp_n})
-    seen = main_path_shapes(ctx, dp, sizes, fixtures, sipp_sizes)
+    tipp_sizes = sorted({8, tipp_n})
+    seen = main_path_shapes(ctx, hctx, dp, sizes, fixtures, sipp_sizes,
+                            tipp_sizes)
     emit({"phase": "main_path_shapes", "sizes": list(sizes),
-          "sipp_sizes": sipp_sizes,
+          "sipp_sizes": sipp_sizes, "tipp_sizes": tipp_sizes,
           "fp_mul_batches": sorted(seen.fp_mul),
+          "fp_mul_hybrid8_batches": sorted(seen.fp_mul_hybrid8),
           "fp_cheap_shapes": sorted(seen.fp_cheap),
           "kexec_batches": sorted(seen.kexec),
           "fused_miller_batches": sorted(seen.miller),
@@ -1030,8 +1394,16 @@ def main():
     P_all, Q_all = ctx.g1_to_dev(A), ctx.g2_to_dev(B)
     g1a, g2a = ctx.g1.normalize(P_all), ctx.g2.normalize(Q_all)
     affine = (g1a[0], g1a[1], g2a[0], g2a[1])
-    rows = [check_fp_mul(ctx, plain_ctx, seen.fp_mul,
-                         1 << (12 if args.quick else 20)),
+    n_rate = 1 << (12 if args.quick else 20)
+    rows = [check_mont_mul(ctx, seen.fp_mul, n_rate, fp_cuda.fp_mul,
+                           fp_cuda.mont_mul_limbs, "fp_mul",
+                           "ripp_tpu/ops/fp_pallas.py:211", SEED),
+            # K1' is also held against K1
+            check_mont_mul(ctx, seen.fp_mul_hybrid8, n_rate,
+                           fp_cuda.fp_mul_hybrid8,
+                           fp_cuda.mont_mul_limbs_hybrid8, "fp_mul_hybrid8",
+                           "ripp_tpu/ops/fp_pallas.py:123", SEED + 7,
+                           also=("k1", fp_cuda.fp_mul)),
             check_fp_cheap(ctx, plain_ctx, seen.fp_cheap),
             check_kexec(ctx, plain_ctx, dp, seen.kexec,
                         64 if args.quick else 1024),
@@ -1046,19 +1418,27 @@ def main():
     # phase 3: main paths, checked against the host model
     main_checked(ctx, dp)
     sipp_checked(ctx, fixtures)
+    tipp_checked(ctx, fixtures)
 
     # phase 4: main paths, full size
     by_path = {"multi_pairing": main_full(ctx, dp, sizes, fixtures),
                "sipp": sipp_full(ctx, fixtures, sipp_n)}
+    by_path["tipp"], by_path["tipp_hybrid8"] = tipp_full(
+        ctx, hctx, fixtures, tipp_n)
     for rw in rows:
         name = rw["name"]
         rw["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
-        rw["launches"] = by_path["sipp"][name]
+        # this slice's main path: TIPP prove + verify at its full n
+        rw["launches"] = by_path[
+            "tipp_hybrid8" if name == "fp_mul_hybrid8" else "tipp"][name]
     for p, names in PATH_KERNELS.items():
         for name in names:
             if by_path[p][name] < 1:
                 raise AssertionError(
                     f"the {p} path never launched kernel {name}")
+    if by_path["tipp_hybrid8"]["fp_mul"] != 0:
+        raise AssertionError("the tipp_hybrid8 path launched fp_mul "
+                             f"{by_path['tipp_hybrid8']['fp_mul']} times")
 
     emit({"phase": "done", "seconds": time.time() - t_start,
           "peak_device_bytes": torch.cuda.max_memory_allocated()})

@@ -1,4 +1,4 @@
-"""Device-backed protocol vectors (Fr scalars, G1/G2 points).
+"""Device-backed protocol vectors (Fr scalars, G1/G2 points, placeholders).
 
 These are the protocol layer's working objects: big vectors stay resident
 on the device as limb trees; the log-round SIPP folds, hadamard rescales
@@ -12,7 +12,8 @@ c * self + other, with the scalar bit-width chosen from c (the reference's
 Counterpart of ripp_tpu/models/vectors.py. Every op runs on the whole
 vector in one call: the JAX package's chunk tiers, padding and per-chunk
 MSMs combined on the host kept its XLA executables few, which nothing
-here needs. PlaceholderVec waits for the GIPA slice.
+here needs. Not ported yet (the TIPP argument does not reach them):
+FrVec.lo / hi / scale / first / inner_product, PointVec.scale / sum.
 """
 
 from __future__ import annotations
@@ -104,9 +105,7 @@ class PointVec:
         return cls(ctx, grp, to_dev(list(points)), len(points))
 
     def to_host(self) -> List:
-        from_dev = (self.ctx.g1_from_dev if self.grp == "g1"
-                    else self.ctx.g2_from_dev)
-        return from_dev(self.pts)
+        return self._to_host(self.pts)
 
     def __len__(self):
         return self.n
@@ -136,10 +135,39 @@ class PointVec:
         return PointVec(self.ctx, self.grp,
                         self.dcurve.scalar_mul_bits(self.pts, bits), self.n)
 
+    def pair_product(self, other: "PointVec"):
+        """prod_i e(self_i, other_i) -> host GT; self in G1, other in G2
+        (PairingIP / AFGHO commit kernel, inner_products/src/lib.rs:51-74):
+        one multi_pairing of the whole vector."""
+        from ..ops.pairing import dev_pairing
+
+        if (self.grp, other.grp) != ("g1", "g2"):
+            raise ValueError(f"pair_product of {self.grp} with {other.grp}")
+        return dev_pairing(self.ctx).multi_pairing(self.pts, other.pts)
+
+    def first(self):
+        """The first element as a host point."""
+        return self._to_host(tree_map(lambda x: x[:1], self.pts))[0]
+
     def msm(self, scalars: FrVec):
         """MSM against an Fr vector -> host point (MIPP kernel,
         inner_products/src/lib.rs:118-142 analog)."""
         res = msm_mod.msm(self.dcurve, self.ctx.t.fr, self.pts, scalars.arr)
+        return self._to_host(tree_map(lambda x: x[None], res))[0]
+
+    def _to_host(self, pts) -> List:
         from_dev = (self.ctx.g1_from_dev if self.grp == "g1"
                     else self.ctx.g2_from_dev)
-        return from_dev(tree_map(lambda x: x[None], res))[0]
+        return from_dev(pts)
+
+
+class PlaceholderVec:
+    """Vector of HomomorphicPlaceholderValue keys (no data): the identity
+    commitment's keys. TIPP never splits or folds it; the SSM
+    configurations, which do, come with their slice."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self):
+        return self.n

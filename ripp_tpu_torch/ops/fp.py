@@ -17,6 +17,14 @@ tensor launches the kernel or raises. There is no size threshold and no
 fallback. A DevFp built with plain=True always takes the plain versions:
 that is how the kernels are held against them on the card.
 
+Multiplier: fp_kernel="cios16" (the default) is the CIOS kernel and its
+plain version; "hybrid8" is the hybrid 8x16 kernel (K1') and its plain
+version. The JAX package chose between the two for the whole process
+(RIPP_FP_PALLAS_KERNEL); here each field object carries its choice, so
+two contexts with different multipliers live side by side. The fused
+kernels (program executor, Miller loop, ladder, GT exponentiation) use
+the CIOS body either way, as in the JAX package.
+
 Counterpart of ripp_tpu/ops/fp.py.
 """
 
@@ -32,6 +40,7 @@ import torch
 LIMB_BITS = 16
 LIMB_MASK = 0xFFFF
 LIMB_DTYPE = torch.int32
+FP_KERNELS = ("cios16", "hybrid8")
 
 
 def int_to_limbs(v: int, nl: int) -> np.ndarray:
@@ -170,13 +179,18 @@ class DevFp:
 
     degree = 1
 
-    def __init__(self, spec: FieldSpec, device, plain: bool = False):
+    def __init__(self, spec: FieldSpec, device, plain: bool = False,
+                 fp_kernel: str = "cios16"):
+        if fp_kernel not in FP_KERNELS:
+            raise ValueError(f"fp_kernel must be one of {FP_KERNELS}, "
+                             f"got {fp_kernel!r}")
         self.spec = spec
         self.p = spec.p
         self.name = spec.name
         self.nl = spec.nl
         self.device = torch.device(device)
         self.plain = plain
+        self.fp_kernel = fp_kernel
         self._one_dev = limbs_tensor(spec.one_mont, self.device)
         self._zero_dev = torch.zeros((spec.nl,), dtype=LIMB_DTYPE,
                                      device=self.device)
@@ -221,10 +235,15 @@ class DevFp:
         return plain_neg(self.spec, a)
 
     def mul(self, a, b):
-        """Montgomery product: the CUDA kernel for CUDA tensors, the plain
-        version for CPU tensors (or always, on a plain=True field)."""
+        """Montgomery product by this field's multiplier: its CUDA kernel
+        for CUDA tensors, its plain version for CPU tensors (or always, on
+        a plain=True field)."""
         from . import fp_cuda
 
+        if self.fp_kernel == "hybrid8":
+            if self._kernel(a):
+                return fp_cuda.fp_mul_hybrid8(self.spec, a, b)
+            return fp_cuda.mont_mul_limbs_hybrid8(self.spec, a, b)
         if self._kernel(a):
             return fp_cuda.fp_mul(self.spec, a, b)
         return fp_cuda.mont_mul_limbs(self.spec, a, b)

@@ -8,6 +8,13 @@ bounds it on the card. `mont_mul_limbs` is the plain version: the CPU
 tests use it, and on the card it is what the kernel is held against.
 Nothing on the main path calls it when the tensors are on the card.
 
+`fp_mul_hybrid8` launches ripp_fp_mul_hybrid8 from the same library,
+which replaces _mul_kernel_hybrid (the reference's
+RIPP_FP_PALLAS_KERNEL=hybrid8 variant); its plain version is
+`mont_mul_limbs_hybrid8`. A context made with
+dev_ctx(..., fp_kernel="hybrid8") sends every standalone product of its
+fields there (ops/fp.py DevFp.mul).
+
 `fp_cheap` launches the batched add / sub / neg helpers from the same
 library. The JAX package has no kernel for them (XLA fused them); their
 plain versions are plain_add / plain_sub / plain_neg in ops/fp.py.
@@ -22,6 +29,7 @@ from .fp import LIMB_BITS, LIMB_DTYPE, LIMB_MASK, FieldSpec
 # Launch counts (plain integers): one is added where a kernel is launched
 # and nowhere else.
 launches = 0          # ripp_fp_mul
+hybrid8_launches = 0  # ripp_fp_mul_hybrid8
 cheap_launches = 0    # ripp_fp_cheap (add / sub / neg helpers)
 
 _CHEAP_OPS = {"add": 1, "sub": 2, "neg": 3}
@@ -64,6 +72,59 @@ def mont_mul_limbs(spec: FieldSpec, a, b):
         diff.append(w & LIMB_MASK)
         c2 = w >> LIMB_BITS
     geq = ((c2 > 0) | (top > 0)).unsqueeze(-1)
+    out = torch.where(geq, torch.stack(diff, -1), torch.stack(res, -1))
+    return out.to(LIMB_DTYPE)
+
+
+def mont_mul_limbs_hybrid8(spec: FieldSpec, a, b):
+    """Plain Montgomery product by the reference's hybrid 8x16 method
+    (ripp_tpu/ops/fp_pallas.py _mul_kernel_hybrid), step by step, in
+    int64 (every value stays below 2^31, so it equals the kernel's uint32
+    arithmetic); canonical in and out, equal to mont_mul_limbs.
+
+    The 2*NL bytes of a times the NL limbs of b accumulate at byte
+    positions i2 + 2j of 4*NL - 2 accumulators; NL reduction rounds take
+    m = t16 * (-p^-1) mod 2^16 from the lowest 16-bit group, add its two
+    bytes times p at even and odd positions, and shift the cancelled
+    group out with its exact carry; then a byte carry ripple and one
+    conditional subtraction of p."""
+    a, b = torch.broadcast_tensors(a, b)
+    nl = spec.nl
+    a64 = a.to(torch.int64)
+    b64 = b.to(torch.int64)
+    a8 = torch.stack([a64 & 0xFF, a64 >> 8], -1).flatten(-2)  # [..., 2 NL]
+    na = 4 * nl - 2
+    acc = torch.zeros(a.shape[:-1] + (na,), dtype=torch.int64,
+                      device=a.device)
+    for i2 in range(2 * nl):
+        acc[..., i2:i2 + 2 * nl - 1:2] += a8[..., i2:i2 + 1] * b64
+    p16 = torch.from_numpy(spec.p_limbs.astype("int64")).to(a.device)
+    n0 = spec.n0inv
+    for k in range(nl):
+        o = 2 * k
+        t16 = (acc[..., o] + ((acc[..., o + 1] & 0xFF) << 8)) & LIMB_MASK
+        m16 = (t16 * n0) & LIMB_MASK
+        acc[..., o:o + 2 * nl - 1:2] += (m16 & 0xFF).unsqueeze(-1) * p16
+        acc[..., o + 1:o + 2 * nl:2] += (m16 >> 8).unsqueeze(-1) * p16
+        acc[..., o + 2] += ((acc[..., o] >> 8) + acc[..., o + 1]) >> 8
+    # U < 2p in bytes 2 NL .. 4 NL - 3; the carry out of the top is 0
+    res8 = []
+    c = None
+    for k in range(2 * nl):
+        idx = 2 * nl + k
+        v = acc[..., idx] if idx < na else torch.zeros_like(acc[..., 0])
+        if c is not None:
+            v = v + c
+        res8.append(v & 0xFF)
+        c = v >> 8
+    res = [res8[2 * k] | (res8[2 * k + 1] << 8) for k in range(nl)]
+    diff = []
+    borrow = 0
+    for k in range(nl):
+        w = res[k] + ((1 << LIMB_BITS) - int(spec.p_limbs[k])) - borrow
+        diff.append(w & LIMB_MASK)
+        borrow = 1 - (w >> LIMB_BITS)
+    geq = (borrow == 0).unsqueeze(-1)
     out = torch.where(geq, torch.stack(diff, -1), torch.stack(res, -1))
     return out.to(LIMB_DTYPE)
 
@@ -117,6 +178,22 @@ def fp_mul(spec: FieldSpec, a, b):
                               n, stream)
     check_launch(err, "ripp_fp_mul")
     launches += 1
+    return out
+
+
+def fp_mul_hybrid8(spec: FieldSpec, a, b):
+    """The same product by the hybrid 8x16 kernel (K1'): same layout and
+    result as fp_mul."""
+    global hybrid8_launches
+    lib, a, b, out, n = _binary_launch(spec, a, b)
+    if n == 0:
+        return out
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ripp_fp_mul_hybrid8(a.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), n, stream)
+    check_launch(err, "ripp_fp_mul_hybrid8")
+    hybrid8_launches += 1
     return out
 
 

@@ -31,6 +31,7 @@ class DevCurveCtx:
         self.host = tower.curve
         self.device = tower.device
         self.plain = tower.plain
+        self.fp_kernel = tower.fp_kernel
         c = self.host
         fp, fp2 = tower.fp, tower.fp2
 
@@ -131,12 +132,18 @@ def limb_bits(limbs, nbits: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _dev_ctx(curve_name: str, device: torch.device, plain: bool) -> DevCurveCtx:
-    return DevCurveCtx(dev_tower(curve_name, device, plain))
+def _dev_ctx(curve_name: str, device: torch.device, plain: bool,
+             fp_kernel: str) -> DevCurveCtx:
+    return DevCurveCtx(dev_tower(curve_name, device, plain, fp_kernel))
 
 
-def dev_ctx(curve_name: str, device=None, plain: bool = False) -> DevCurveCtx:
+def dev_ctx(curve_name: str, device=None, plain: bool = False,
+            fp_kernel: str = "cios16") -> DevCurveCtx:
     """Context for a curve on a device: torch.device("cuda") when `device`
     is None (raises if there is no card); the tests pass device="cpu".
-    Cached per (curve, device, plain)."""
-    return _dev_ctx(curve_name, resolve_device(device), bool(plain))
+    fp_kernel picks the Montgomery multiplier of every standalone Fp and
+    Fr product: "cios16" (the default, K1) or "hybrid8" (K1'), the JAX
+    package's RIPP_FP_PALLAS_KERNEL as a context argument; it does not
+    change a result. Cached per (curve, device, plain, fp_kernel)."""
+    return _dev_ctx(curve_name, resolve_device(device), bool(plain),
+                    fp_kernel)

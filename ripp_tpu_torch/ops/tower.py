@@ -232,14 +232,18 @@ class DevCubicExt:
 class DevTower:
     """Bundles DevFp + device fp2/fp6/fp12 ops for one pairing curve."""
 
-    def __init__(self, curve: PairingCurve, device, plain: bool = False):
+    def __init__(self, curve: PairingCurve, device, plain: bool = False,
+                 fp_kernel: str = "cios16"):
         self.curve = curve
         self.device = torch.device(device)
         self.plain = plain
+        self.fp_kernel = fp_kernel
         self.spec_fp = make_spec(curve.name + ".fp", curve.p)
         self.spec_fr = make_spec(curve.name + ".fr", curve.r)
-        self.fp = DevFp(self.spec_fp, self.device, plain=plain)
-        self.fr = DevFp(self.spec_fr, self.device, plain=plain)
+        self.fp = DevFp(self.spec_fp, self.device, plain=plain,
+                        fp_kernel=fp_kernel)
+        self.fr = DevFp(self.spec_fr, self.device, plain=plain,
+                        fp_kernel=fp_kernel)
 
         p = curve.p
         beta = curve.tower.beta  # u^2 = beta
@@ -357,10 +361,12 @@ _CURVES = {
 
 
 @functools.lru_cache(maxsize=None)
-def _dev_tower(curve_name: str, device: torch.device, plain: bool) -> DevTower:
+def _dev_tower(curve_name: str, device: torch.device, plain: bool,
+               fp_kernel: str) -> DevTower:
     if curve_name not in _CURVES:
         raise ValueError(curve_name)
-    return DevTower(_CURVES[curve_name](), device, plain=plain)
+    return DevTower(_CURVES[curve_name](), device, plain=plain,
+                    fp_kernel=fp_kernel)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -381,7 +387,10 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def dev_tower(curve_name: str, device=None, plain: bool = False) -> DevTower:
-    """Cached tower for (curve, device). plain=True gives a tower whose
-    field ops always take their plain PyTorch versions."""
-    return _dev_tower(curve_name, resolve_device(device), bool(plain))
+def dev_tower(curve_name: str, device=None, plain: bool = False,
+              fp_kernel: str = "cios16") -> DevTower:
+    """Cached tower for (curve, device, plain, fp_kernel). plain=True
+    gives a tower whose field ops always take their plain PyTorch
+    versions; fp_kernel picks the Montgomery multiplier (ops/fp.py)."""
+    return _dev_tower(curve_name, resolve_device(device), bool(plain),
+                      fp_kernel)

@@ -175,6 +175,7 @@ _ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     # a, b, out, n, stream
     "ripp_fp_mul": [_VP, _VP, _VP, _LL, _VP],
+    "ripp_fp_mul_hybrid8": [_VP, _VP, _VP, _LL, _VP],
     # op, a, b, out, n, stream
     "ripp_fp_cheap": [_I, _VP, _VP, _VP, _LL, _VP],
     # tab, n_instr, consts, in, in_regs, n_in, masks, mask_regs, n_mask,

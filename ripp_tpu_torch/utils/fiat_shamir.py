@@ -1,20 +1,27 @@
-"""Fiat-Shamir sponge and deterministic randomness (the part SIPP uses).
+"""Fiat-Shamir sponge, counter-nonce challenges and deterministic
+randomness.
 
 `FiatShamirRng` is SIPP's hash-chain sponge RNG (arkworks ripp
 `sipp/src/rng.rs:12-73`): seed = H(new || seed) on absorb, ChaCha20
 reseeded from the digest each absorb, values squeezed via the RNG word
 stream. Blake2s-256 digests (python hashlib matches the RustCrypto
-defaults). `SeededRng`, `rand_field` and `rand_sw_point` draw test and
-setup values the arkworks way.
+defaults). GIPA's and TIPA's challenges are Blake2b digests of
+nonce || material with a counter nonce, retried until the value is
+usable (`challenge_field`, tipa/mod.rs:196-209; GIPA's 128-bit form is
+models/gipa.py round_challenge). `SeededRng`, `rand_field`,
+`rand_sw_point` and `random_generators` draw test and setup values the
+arkworks way.
 
-The port's own copy of that part of ripp_tpu/utils/fiat_shamir.py
-(byte-exact; tests/test_torch_utils.py holds the streams equal). The
-GIPA/TIPA counter-nonce challenges wait for the slice that ports them.
+The port's own copy of ripp_tpu/utils/fiat_shamir.py but its
+`challenge_u128`, which nothing of the TIPP slice calls (byte-exact;
+tests/test_torch_utils.py and tests/test_torch_gipa.py hold the streams
+and challenges equal).
 """
 
 from __future__ import annotations
 
 import hashlib
+from typing import Callable, List, Optional
 
 from .chacha import ChaChaRng
 
@@ -55,6 +62,37 @@ class FiatShamirRng:
 
     def fill_bytes(self, n: int) -> bytes:
         return self.r.fill_bytes(n)
+
+
+def field_from_random_bytes(data: bytes, r_modulus: int) -> Optional[int]:
+    """ark-ff 0.4 Fp::from_random_bytes semantics: read ceil(bits/64)
+    little-endian u64 limbs from the input, MASK the top limb by
+    REPR_SHAVE_BITS (= 64*limbs - MODULUS_BIT_SIZE), return None if the
+    masked integer is >= the modulus.
+
+    The mask is what makes the rejection loop terminate for any modulus
+    (without it a 24-bit test-curve r rejects ~2^-232 of draws) and what
+    matches arkworks' accept/reject pattern bit-for-bit on
+    BLS12-381/377."""
+    bits = r_modulus.bit_length()
+    limbs = (bits + 63) // 64
+    v = int.from_bytes(data[: limbs * 8], "little")
+    v &= (1 << bits) - 1  # shave REPR_SHAVE_BITS off the top limb
+    return v if v < r_modulus else None
+
+
+def challenge_field(digest_fn: Callable[[bytes], bytes],
+                    material: Callable[[int], bytes],
+                    r_modulus: int) -> int:
+    """from_random_bytes-style challenge with the counter-nonce rejection
+    loop (tipa/mod.rs:196-209)."""
+    counter = 0
+    while True:
+        h = digest_fn(material(counter))
+        v = field_from_random_bytes(h, r_modulus)
+        if v is not None:
+            return v
+        counter += 1
 
 
 # --- deterministic sampling (arkworks UniformRand analogs) ------------------
@@ -105,3 +143,8 @@ def rand_sw_point(rng, curve):
             pt = curve.scalar_mul_unreduced(pt, curve.cofactor)
             if pt is not None:
                 return pt
+
+
+def random_generators(rng, curve, num: int) -> List:
+    """`random_generators` analog (dh_commitments/src/lib.rs:59-61)."""
+    return [rand_sw_point(rng, curve) for _ in range(num)]

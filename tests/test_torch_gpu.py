@@ -157,3 +157,61 @@ def test_fr_products_use_the_fr_library(cuda_device):
     got = ctx.fr_limbs_to_bits(a)
     assert fp_cuda.launches == before + 2
     assert torch.equal(got, plain.fr_limbs_to_bits(a))
+
+
+@pytest.mark.parametrize("field", ["fp", "fr"])
+@pytest.mark.parametrize("curve_name", ["bls12_toy", "bls12_381"])
+def test_hybrid8_kernel_equals_cios_kernel_and_plain(cuda_device, curve_name,
+                                                     field):
+    """K1' against K1, against its plain version and against bigints, the
+    edge operands 0, 1, p-1, R mod p in every pairing first."""
+    c = get_curve(curve_name)
+    spec = make_spec(f"{curve_name}.{field}", c.p if field == "fp" else c.r)
+    p = spec.p
+    edge = [0, 1, p - 1, spec.r % p]
+    rng = random.Random(len(curve_name) + len(field))
+    xs = [x for x in edge for _ in edge] + [rng.randrange(p) for _ in range(300)]
+    ys = [y for _ in edge for y in edge] + [rng.randrange(p) for _ in range(300)]
+    a = limbs_tensor(spec.to_mont_limbs(xs), cuda_device)
+    b = limbs_tensor(spec.to_mont_limbs(ys), cuda_device)
+    before = fp_cuda.launches, fp_cuda.hybrid8_launches
+    got = fp_cuda.fp_mul_hybrid8(spec, a, b)
+    assert fp_cuda.hybrid8_launches == before[1] + 1
+    assert torch.equal(got, fp_cuda.fp_mul(spec, a, b))
+    assert fp_cuda.launches == before[0] + 1
+    assert torch.equal(got, fp_cuda.mont_mul_limbs_hybrid8(spec, a, b))
+    assert spec.from_mont_limbs(got) == [x * y % p for x, y in zip(xs, ys)]
+
+
+def test_hybrid8_context_proves_tipp_with_hybrid8_only(cuda_device):
+    """A TIPP prove + verify on the card in a hybrid8 context: the same
+    proof bytes as under cios16, and K1 itself never launches."""
+    from ripp_tpu_torch.models import tipa
+    from ripp_tpu_torch.models.instances import tipp_config
+    from ripp_tpu_torch.models.vectors import PointVec
+    from ripp_tpu_torch.utils.fiat_shamir import SeededRng, rand_sw_point
+
+    out = {}
+    for kernel in ("cios16", "hybrid8"):
+        ctx = dev_ctx("bls12_toy", device=cuda_device, fp_kernel=kernel)
+        host = ctx.host
+        rng = SeededRng(9)
+        cfg = tipp_config(ctx)
+        srs = tipa.setup_srs(ctx, rng, 4)
+        ck_a, ck_b = srs.get_commitment_keys()
+        ck_t = cfg.ipc.setup(rng, 1)
+        m_a = PointVec.from_host(
+            ctx, "g1", [rand_sw_point(rng, host.g1) for _ in range(4)])
+        m_b = PointVec.from_host(
+            ctx, "g2", [rand_sw_point(rng, host.g2) for _ in range(4)])
+        com = (cfg.lmc.commit(ck_a, m_a), cfg.rmc.commit(ck_b, m_b),
+               cfg.ipc.commit(ck_t, [cfg.ip.compute(m_a, m_b)]))
+        before = fp_cuda.launches, fp_cuda.hybrid8_launches
+        proof = tipa.prove(cfg, srs, (m_a, m_b), (ck_a, ck_b, ck_t))
+        assert tipa.verify(cfg, srs.get_verifier_key(), ck_t, com, proof)
+        k1 = fp_cuda.launches - before[0]
+        k1h = fp_cuda.hybrid8_launches - before[1]
+        assert (k1 > 0 and k1h == 0) if kernel == "cios16" else \
+            (k1 == 0 and k1h > 0)
+        out[kernel] = tipa.ser_proof(cfg, proof)
+    assert out["cios16"] == out["hybrid8"]

@@ -37,11 +37,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
     assert int(lines["MODULES"]) >= 26
     assert lines["BAD"] == "[]"
-    # the SIPP slice's modules are among them
+    # the SIPP and TIPP slices' modules are among them
     names = set(lines["NAMES"].split())
     for mod in ("utils.chacha", "utils.fiat_shamir", "utils.serialize",
                 "ops.curve_fused", "ops.msm", "models.vectors",
-                "models.sipp"):
+                "models.sipp", "errors", "utils.poly", "ops.fixed_base",
+                "models.algebra", "models.commitments", "models.instances",
+                "models.gipa", "models.pairing_check", "models.tipa"):
         assert "ripp_tpu_torch." + mod in names
 
 
